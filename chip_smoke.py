@@ -1,0 +1,309 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (dvpari_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from csrc/, holds each against its plain PyTorch
+version on the card (bit-equal), then drives the port's main path at the
+size a prove uses: the fixed-base fan-out of 2^18 points (g_k of an
+m = 2^16 prove), a 2^18-point MSM over those points and a ragged
+2^16 + 5-point MSM, each checked against the python-int host oracle
+(sum k_i e_i mod R) * G.  Prints timings beside the card's name and
+power limit, one JSON line of per-kernel numbers, and as the last line
+{"ok": true, "device": {...}}.  Any failure raises: no phase is caught.
+Exits non-zero, printing no result, when CUDA is unavailable.
+"""
+
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+from concurrent.futures import ProcessPoolExecutor
+import multiprocessing
+
+N_FANOUT = 1 << 18  # g_k of an m = 2^16 prove
+N_RAGGED = (1 << 16) + 5  # a wire-count-shaped g_m
+N_SMALL = 100  # compare phase: 4 columns of points, 1 zero column added
+N_SPOT = 64  # fan-out slots checked against host.smul
+REPS = 3
+SEED = 7
+ORACLE_WORKERS = 6
+
+SOURCE = "dvpari_tpu_torch/csrc/bs_ladder.cu"
+LADDER_TPU = "dvpari_tpu/ops/pallas_msm.py:33"  # _ladder_kernel
+ADD_TPU = "dvpari_tpu/ops/xsk233_bs.py:107"  # add (XLA) in tnaf_table / fold_sum
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _smul_g(k: int):
+    """Oracle job (runs in a worker process): [k]G on the host."""
+    from dvpari_tpu_torch.utils import xsk233_host as host
+
+    return host.smul(k, (host.GX, host.GY))
+
+
+def _nvidia_smi(query: str, units: bool = True) -> str:
+    fmt = "csv,noheader" if units else "csv,noheader,nounits"
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+
+    import numpy as np
+
+    from dvpari_tpu_torch.ops import fr, msm_kernel, xsk233
+    from dvpari_tpu_torch.ops import xsk233_bs as bs
+    from dvpari_tpu_torch.utils import roofline
+    from dvpari_tpu_torch.utils import xsk233_host as host
+
+    dev = torch.device("cuda")
+
+    # -- phase 1: the card --------------------------------------------------
+    card = _nvidia_smi("name,power.limit")
+    clock_mhz = float(_nvidia_smi("clocks.max.sm", units=False))
+    log(card)
+    log(f"max SM clock {clock_mhz:.0f} MHz; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    tag = f"[{card}]"
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def median_s(fn, reps=REPS):
+        fn()  # warm-up
+        sync()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    def event_ms(fn, reps=REPS):
+        """Median device time of one call, CUDA events, after a warm-up."""
+        fn()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    # -- inputs (host), and the oracle jobs started on them -----------------
+    rng = random.Random(SEED)
+    es = [rng.randrange(1, host.R) for _ in range(N_FANOUT)]
+    ks = [rng.randrange(1, host.R) for _ in range(N_FANOUT)]
+    kr = [rng.randrange(1, host.R) for _ in range(N_RAGGED)]
+    spots = sorted(rng.sample(range(1, N_FANOUT - 1), N_SPOT - 2) + [0, N_FANOUT - 1])
+    want_msm = sum(k * e for k, e in zip(ks, es)) % host.R
+    want_ragged = sum(k * e for k, e in zip(kr, es)) % host.R
+    es_limbs, ks_limbs, kr_limbs = fr.from_int(es), fr.from_int(ks), fr.from_int(kr)
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(ORACLE_WORKERS, mp_context=ctx) as pool:
+        oracle_msm = pool.submit(_smul_g, want_msm)
+        oracle_ragged = pool.submit(_smul_g, want_ragged)
+        oracle_spots = [pool.submit(_smul_g, es[j]) for j in spots]
+
+        # -- phase 2: build ---------------------------------------------------
+        t0 = time.perf_counter()
+        so = msm_kernel.build()
+        log(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(so)}")
+        for line in msm_kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas: {line.strip()}")
+
+        # -- phase 3: kernels vs plain versions on the card -------------------
+        srng = np.random.default_rng(SEED)
+        small_e = [int(x) for x in srng.integers(1, 2**62, N_SMALL)]
+        oh_s, ng_s, C_s = xsk233.recode(fr.from_int(small_e), dev)  # C_s = 4
+        gtab = xsk233.gen_table_planes(dev)
+        compare = {}
+
+        def held(name, kernel_fn, plain_fn, timed=True):
+            got, want = kernel_fn(), plain_fn()
+            sync()
+            err = int((got.long() - want.long()).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: kernel != plain (max |diff| {err})")
+            rec = compare.setdefault(name, {"max_abs_err": 0})
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if timed:  # timed in phase 7, once the oracle workers are done
+                rec["fns"] = (kernel_fn, plain_fn)
+            return got
+
+        # the ladder with one shared table (the fan-out's form) ...
+        pts_s = held(
+            "ladder",
+            lambda: msm_kernel.ladder(oh_s, ng_s, gtab),
+            lambda: bs.ladder(oh_s, ng_s, gtab),
+            timed=False,
+        )
+        # ... and with a table per column (the MSM's): those 128 points plus
+        # one all-zero (infinity) column, 160 non-zero scalars
+        planes_s = torch.cat([pts_s, torch.zeros_like(pts_s[..., :1])], dim=-1).contiguous()
+        small_k = [int(x) for x in srng.integers(1, 2**62, 32 * (C_s + 1))]
+        oh_m, ng_m, _ = xsk233.recode(fr.from_int(small_k), dev)
+        table_s = bs.tnaf_table(planes_s, add=msm_kernel.point_add)
+        held(
+            "ladder",
+            lambda: msm_kernel.ladder(oh_m, ng_m, table_s),
+            lambda: bs.ladder(oh_m, ng_m, table_s),
+        )
+        # point add: generic pairs, P + P, P + (-P), infinity / zero planes
+        q_s = torch.roll(planes_s, 1, dims=-1)
+        q_s[..., 1] = planes_s[..., 1]
+        q_s[..., 2] = bs.neg(planes_s[..., 2:3])[..., 0]
+        q_s = q_s.contiguous()
+        held(
+            "point_add",
+            lambda: msm_kernel.point_add(planes_s, q_s),
+            lambda: bs.add(planes_s, q_s),
+        )
+        # the entry points as a whole, against the plain composition
+        held(
+            "msm_packed",
+            lambda: msm_kernel.msm_packed(oh_m, ng_m, planes_s),
+            lambda: bs.fold_sum(bs.ladder(oh_m, ng_m, bs.tnaf_table(planes_s))),
+            timed=False,
+        )
+        held(
+            "mulgen_packed",
+            lambda: msm_kernel.mulgen_packed(oh_s, ng_s, gtab),
+            lambda: bs.ladder(oh_s, ng_s, gtab),
+            timed=False,
+        )
+        log("kernels " + json.dumps({
+            "compare_cols": {"ladder": [C_s, C_s + 1], "point_add": C_s + 1},
+            "kernels": [
+                {"name": "ladder", "launches": msm_kernel.ladder.launches, "matches_plain": True},
+                {"name": "point_add", "launches": msm_kernel.point_add.launches,
+                 "matches_plain": True},
+            ],
+        }))
+
+        # -- phases 4-6: the main path, counted -------------------------------
+        msm_kernel.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        proj, planes = xsk233.mulgen_limbs(es_limbs, device=dev)
+        sync()
+        t_fan = time.perf_counter() - t0
+        res = xsk233.msm_limbs(ks_limbs, planes, device=dev)
+        C_r = -(-N_RAGGED // 32)
+        planes_r = planes[..., :C_r].clone()
+        planes_r[..., -1] &= (1 << (N_RAGGED - 32 * (C_r - 1))) - 1  # zero padding slots
+        res_r = xsk233.msm_limbs(kr_limbs, planes_r, device=dev)
+        sync()
+        launches = {"ladder": msm_kernel.ladder.launches, "point_add": msm_kernel.point_add.launches}
+        log(f"main path launches: {json.dumps(launches)} (first fan-out {t_fan:.3f} s, "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+        for name, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"kernel {name} was not launched on the main path")
+
+        # -- checks against the host oracle -----------------------------------
+        if proj.shape != (3, 8, N_FANOUT) or tuple(planes.shape) != (3, 233, N_FANOUT // 32):
+            raise AssertionError(f"fan-out shapes {proj.shape}, {tuple(planes.shape)}")
+        got_spots = xsk233.to_affine_int(proj[..., spots])
+        for j, got, fut in zip(spots, got_spots, oracle_spots):
+            if got != fut.result():
+                raise AssertionError(f"fan-out slot {j} != host.smul")
+        log(f"fan-out 2^18: {N_SPOT} slots equal host.smul")
+        if xsk233.to_affine_int(res) != oracle_msm.result():
+            raise AssertionError("MSM 2^18 != host oracle")
+        log("MSM 2^18: equals (sum k_i e_i mod R) * G")
+        if xsk233.to_affine_int(res_r) != oracle_ragged.result():
+            raise AssertionError("MSM 2^16+5 != host oracle")
+        log("MSM 2^16+5: equals (sum k_i e_i mod R) * G")
+
+    # -- the kernels against their plain versions at the main path's shapes:
+    # the 2^18 fan-out's ladder (shared table), the 2^18 MSM's table build
+    # (one six-sum launch), its ladder (per-column table) and first fold step
+    C = N_FANOUT // 32
+    oh_e, ng_e, _ = xsk233.recode(es_limbs, dev)
+    held("ladder", lambda: msm_kernel.ladder(oh_e, ng_e, gtab),
+         lambda: bs.ladder(oh_e, ng_e, gtab), timed=False)
+    oh, ng, _ = xsk233.recode(ks_limbs, dev)
+    step = 1024  # the plain table, built a slice of columns at a time
+    table = held("point_add", lambda: bs.tnaf_table(planes, add=msm_kernel.point_add),
+                 lambda: torch.cat([bs.tnaf_table(planes[..., i:i + step])
+                                    for i in range(0, C, step)], dim=-1), timed=False)
+    lad = held("ladder", lambda: msm_kernel.ladder(oh, ng, table),
+               lambda: bs.ladder(oh, ng, table), timed=False)
+    half = C // 2
+    held("point_add", lambda: msm_kernel.point_add(lad[..., :half], lad[..., half:]),
+         lambda: bs.add(lad[..., :half], lad[..., half:]), timed=False)
+    log(f"kernels equal their plain versions at the main path's shapes: ladder {C} "
+        f"columns (shared and per-column table), point_add {6 * C} columns (table "
+        f"build) and {half} (first fold step)")
+
+    # -- phase 7: timings -----------------------------------------------------
+    t_fan = median_s(lambda: xsk233.mulgen_limbs(es_limbs, device=dev))
+    t_msm = median_s(lambda: xsk233.msm_limbs(ks_limbs, planes, device=dev))
+    t_rag = median_s(lambda: xsk233.msm_limbs(kr_limbs, planes_r, device=dev))
+    for name, n, t in (("fan-out 2^18", N_FANOUT, t_fan), ("MSM 2^18", N_FANOUT, t_msm),
+                       ("MSM 2^16+5", N_RAGGED, t_rag)):
+        log(f"{name}: {t:.4f} s median of {REPS}, {n / t:,.0f} pts/s {tag}")
+
+    # the MSM's parts at 2^18
+    t_recode = median_s(lambda: xsk233.recode(ks_limbs, dev))
+    t_table = median_s(lambda: bs.tnaf_table(planes, add=msm_kernel.point_add))
+    t_fold = median_s(lambda: bs.fold_sum(lad, add=msm_kernel.point_add))
+    ms = {
+        "ladder": event_ms(lambda: msm_kernel.ladder(oh, ng, table)),
+        "point_add": event_ms(lambda: msm_kernel.point_add(table[5], table[6])),
+    }
+    ms_shared = event_ms(lambda: msm_kernel.ladder(oh_e, ng_e, gtab))
+    log(
+        f"MSM 2^18 parts: recode {t_recode:.4f} s, table build {t_table:.4f} s, "
+        f"ladder kernel {ms['ladder'] / 1e3:.4f} s, folds {t_fold:.4f} s {tag}"
+    )
+    log(f"fan-out 2^18 ladder kernel (shared table) {ms_shared / 1e3:.4f} s {tag}")
+
+    for rec in compare.values():
+        if "fns" in rec:
+            kernel_fn, plain_fn = rec.pop("fns")
+            rec["small_ms"] = 1e3 * median_s(kernel_fn)
+            rec["plain_ms"] = 1e3 * median_s(plain_fn)
+
+    costs = {"ladder": roofline.ladder_cost(C, C), "point_add": roofline.point_add_cost(C)}
+    kernels = []
+    for name, replaces in (("ladder", LADDER_TPU), ("point_add", ADD_TPU)):
+        b_s, b_by = roofline.bound(costs[name], clock_mhz)
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": compare[name]["max_abs_err"],
+            "ms": ms[name], "plain_ms": compare[name]["plain_ms"],
+            "bound_ms": 1e3 * b_s, "bound_by": b_by, "library_ms": None,
+            "cols": C, "small_ms": compare[name]["small_ms"], "small_cols": C_s + 1,
+        })
+    log(json.dumps({"kernels": kernels}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,117 @@
+"""sect233k1 MSM and fixed-base fan-out on Fr limb scalars: the
+production entry points, bit-sliced path only.
+
+Counterpart of dvpari_tpu/ops/xsk233.py (`msm_limbs` via
+_msm_limbs_bitsliced + _msm_device_recoded, `mulgen_limbs_host` via
+_mulgen_bs_device): strong_normalize -> on-device tau-NAF recode ->
+ladder kernel -> fold.  The whole vector is recoded in one call and the
+ladder runs over all columns in one launch; padding slots carry zero
+scalars (which recode to the infinity digit) and, in the MSM, zero
+planes (which the complete add treats as infinity).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from dvpari_tpu_torch.device import resolve
+from dvpari_tpu_torch.ops import fr, msm_kernel
+from dvpari_tpu_torch.ops import tnaf_device as tdev
+from dvpari_tpu_torch.ops import xsk233_bs as bs
+from dvpari_tpu_torch.utils import gf2_host as gh
+from dvpari_tpu_torch.utils import xsk233_host as host
+
+M = bs.M
+
+
+def _int_planes(v: int) -> "list[int]":
+    """A field element -> 233 plane words with the element in all 32 slots."""
+    return [-1 if (v >> i) & 1 else 0 for i in range(M)]
+
+
+def _generator() -> torch.Tensor:
+    """G = (GX : GY : 1) in all 32 slots of one column: int32[3, 233, 1]."""
+    rows = [_int_planes(host.GX), _int_planes(host.GY), _int_planes(1)]
+    return torch.tensor(rows, dtype=torch.int32)[..., None]
+
+
+@functools.lru_cache(maxsize=1)
+def _gen_table_cpu() -> torch.Tensor:
+    return bs.tnaf_table(_generator())
+
+
+def gen_table_planes(device="cuda") -> torch.Tensor:
+    """G's tau-NAF window table, int32[11, 3, 233, 1], G in all 32 slots:
+    the shared table of the fixed-base ladder.  Built once per process
+    with the plain tnaf_table on the CPU (one column); each call returns
+    a copy on `device`."""
+    return _gen_table_cpu().to(resolve(device), copy=True)
+
+
+def to_affine_int(p):
+    """Word-layout point(s) uint32[3, 8] or [3, 8, n] (array or tensor)
+    -> (x, y) python ints, None for infinity (or a list of those)."""
+    w = p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
+    w = w.astype(np.uint32)
+    squeeze = w.ndim == 2
+    if squeeze:
+        w = w[..., None]
+    out = []
+    for j in range(w.shape[-1]):
+        X, Y, Z = (sum(int(w[c, i, j]) << (32 * i) for i in range(8)) for c in range(3))
+        if Z == 0:
+            out.append(None)
+        else:
+            zi = gh.inv_int(Z)
+            out.append((gh.mul_int(X, zi), gh.mul_int(Y, zi)))
+    return out[0] if squeeze else out
+
+
+def recode(scalars, device="cuda"):
+    """Fr limbs int32[20, n] -> ladder operands (oh, ng, C): canonicalise,
+    pad to 32*C slots with zero scalars, recode on `device`.  Raises if
+    the recode's self-check fails."""
+    s = torch.as_tensor(scalars, dtype=torch.int32).to(resolve(device))
+    if s.dim() != 2 or s.shape[0] != fr.NLIMB or s.shape[1] < 1:
+        raise ValueError(f"scalars must be int32[{fr.NLIMB}, n], got {tuple(s.shape)}")
+    n = s.shape[1]
+    C = -(-n // 32)
+    canon = fr.strong_normalize(s)
+    if 32 * C != n:
+        canon = torch.cat([canon, canon.new_zeros((fr.NLIMB, 32 * C - n))], dim=1)
+    oh, ng, ok = tdev.recode_masks(canon)
+    if not bool(ok):
+        raise RuntimeError("device tau-NAF recode self-check failed")
+    return oh, ng, C
+
+
+def msm_limbs(scalars, planes, device="cuda") -> np.ndarray:
+    """sum_i [k_i]P_i over Fr limb scalars int32[20, n] and bit-sliced
+    points int32[3, 233, ceil(n/32)] (tensor; slots past n must be zero
+    planes or carry zero scalars).  Returns the word-layout point
+    uint32[3, 8]."""
+    dev = resolve(device)
+    oh, ng, C = recode(scalars, dev)
+    if not isinstance(planes, torch.Tensor) or planes.dtype != torch.int32:
+        raise TypeError("planes must be an int32 tensor (see convert.planes_from_numpy)")
+    planes = planes.to(dev)
+    if tuple(planes.shape) != (3, M, C):
+        raise ValueError(
+            f"planes have shape {tuple(planes.shape)} for {C} columns of scalars"
+        )
+    return bs.extract_point(msm_kernel.msm_packed(oh, ng, planes.contiguous()), 0)
+
+
+def mulgen_limbs(scalars, device="cuda") -> "tuple[np.ndarray, torch.Tensor]":
+    """Fixed-base fan-out [s_i]G over Fr limb scalars int32[20, n].
+    Returns (word-layout points uint32[3, 8, n] on the host, bit planes
+    int32[3, 233, ceil(n/32)] on `device`, padding slots infinity)."""
+    dev = resolve(device)
+    n = torch.as_tensor(scalars).shape[-1]
+    oh, ng, _ = recode(scalars, dev)
+    planes = msm_kernel.mulgen_packed(oh, ng, gen_table_planes(dev))
+    proj = bs.unpack_points(planes)[..., :n]
+    return proj, planes

@@ -1,0 +1,71 @@
+"""Host-side (python-int) sect233k1 group oracle: points of order r on
+the Koblitz curve y^2 + xy = x^3 + 1 over GF(2^233), cofactor 4,
+r = R = the Fr modulus.
+
+Counterpart of dvpari_tpu/utils/xsk233_host.py, without the native
+fast paths (smul_fast, decode_fast).
+"""
+
+from __future__ import annotations
+
+from dvpari_tpu_torch.utils import gf2_host as g
+
+# Subgroup order = Fr modulus.
+R = 3450873173395281893717377931138512760570940988862252126328087024741343
+
+# SEC2 sect233k1 base point (order r).
+GX = 0x17232BA853A7E731AF129F22FF4149563A419C26BF50A4C9D6EEFAD6126
+GY = 0x1DB537DECE819B7F70F555A67C427A8CD9BF18AEB9B56E0C11056FAE6A3
+
+
+def neg(p):
+    if p is None:
+        return None
+    x, y = p
+    return (x, x ^ y)
+
+
+def add(p, q):
+    if p is None:
+        return q
+    if q is None:
+        return p
+    x1, y1 = p
+    x2, y2 = q
+    if x1 == x2:
+        if y1 == y2:
+            if x1 == 0:
+                return None  # the order-2 point doubles to infinity
+            lam = x1 ^ g.mul_int(y1, g.inv_int(x1))
+            x3 = g.mul_int(lam, lam) ^ lam
+            y3 = g.mul_int(x1, x1) ^ g.mul_int(lam ^ 1, x3)
+            return (x3, y3)
+        return None  # q == -p
+    lam = g.mul_int(y1 ^ y2, g.inv_int(x1 ^ x2))
+    x3 = g.mul_int(lam, lam) ^ lam ^ x1 ^ x2
+    y3 = g.mul_int(lam, x1 ^ x3) ^ x3 ^ y1
+    return (x3, y3)
+
+
+def smul(k: int, p):
+    acc = None
+    while k:
+        if k & 1:
+            acc = add(acc, p)
+        p = add(p, p)
+        k >>= 1
+    return acc
+
+
+def encode(p) -> bytes:
+    """30-byte compressed encoding; infinity = all-zero.
+
+    Layout: bits 0..232 = x (little-endian), bit 233 = lsb(y/x),
+    bits 234..239 = 0.
+    """
+    if p is None:
+        return bytes(30)
+    x, y = p
+    lam_bit = g.mul_int(y, g.inv_int(x)) & 1
+    v = x | (lam_bit << 233)
+    return v.to_bytes(30, "little")
