@@ -127,7 +127,7 @@ def main() -> int:
         t0 = time.perf_counter()
         so = msm_kernel.build()
         log(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(so)}")
-        for line in msm_kernel.build_log.splitlines():
+        for line in msm_kernel.build_logs.get(so, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
 

@@ -67,10 +67,22 @@ constexpr int F0 = LEAD;                        // slot 0
 constexpr int WIDE_OFF = F0 + NSLOT * SLOT;     // the 465-word product
 constexpr int RED_OFF = WIDE_OFF + WIDE_WORDS;  // 4 x NWARPS reduction words
 constexpr int WORK_WORDS = RED_OFF + 4 * NWARPS;
+
+// Phase clocks (built with -DBS_PHASE_CLOCKS only): thread 0 of every
+// block adds the clock64() cycles between block barriers to the phase it
+// is in, and counts the doublings that ran and those that a lane needed.
+enum Phase { PH_FROB, PH_PICK, PH_MUL, PH_REDUCE, PH_XOR, PH_DOUBLE, PH_SELECT, N_PHASES };
+#ifdef BS_PHASE_CLOCKS
+constexpr int PROF_WORDS = 2 * (N_PHASES + 2);  // sums, last stamp, phase override
+#else
+constexpr int PROF_WORDS = 0;
+#endif
+constexpr int PROF_OFF = WORK_WORDS;  // 8-byte aligned: WORK_WORDS is even
+
 constexpr int TABLE_WORDS = TABLE_SIZE * 3 * M;
-constexpr int TAB_OFF = WORK_WORDS;               // ladder: the window table
+constexpr int TAB_OFF = PROF_OFF + PROF_WORDS;    // ladder: the window table
 constexpr int WMASK_OFF = TAB_OFF + TABLE_WORDS;  // ladder: 11 digit masks + negate
-constexpr size_t ADD_SMEM = sizeof(uint32_t) * WORK_WORDS;
+constexpr size_t ADD_SMEM = sizeof(uint32_t) * (WORK_WORDS + PROF_WORDS);
 constexpr size_t LADDER_SMEM = sizeof(uint32_t) * (WMASK_OFF + 16);
 
 }  // namespace
@@ -83,6 +95,50 @@ extern __shared__ __align__(16) uint32_t smem[];
 namespace {
 
 __device__ __forceinline__ uint32_t* el(int slot) { return smem + F0 + slot * SLOT; }
+
+#ifdef BS_PHASE_CLOCKS
+__device__ unsigned long long g_phase_cycles[N_PHASES];
+__device__ unsigned long long g_phase_windows;   // column-windows timed
+__device__ unsigned long long g_doubles_run;     // point_double() calls
+__device__ unsigned long long g_doubles_needed;  // adds with a P = Q lane
+
+__device__ __forceinline__ unsigned long long* prof() {
+  return reinterpret_cast<unsigned long long*>(smem + PROF_OFF);
+}
+// Start the clocks (after the block's first barrier).
+__device__ __forceinline__ void prof_start() {
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < N_PHASES; ++k) prof()[k] = 0ull;
+    prof()[N_PHASES] = clock64();
+    prof()[N_PHASES + 1] = N_PHASES;  // no override
+  }
+}
+// Charge the cycles since the last mark to phase ph (or to the override).
+__device__ __forceinline__ void mark(int ph) {
+  if (threadIdx.x == 0) {
+    unsigned long long* pr = prof();
+    const unsigned long long now = clock64();
+    if (pr[N_PHASES + 1] != N_PHASES) ph = (int)pr[N_PHASES + 1];
+    pr[ph] += now - pr[N_PHASES];
+    pr[N_PHASES] = now;
+  }
+}
+// Charge every mark until the next phase_override(N_PHASES) to ph.
+__device__ __forceinline__ void phase_override(int ph) {
+  if (threadIdx.x == 0) prof()[N_PHASES + 1] = ph;
+}
+__device__ __forceinline__ void count_double(bool needed, bool ran) {
+  if (threadIdx.x == 0) {
+    if (needed) atomicAdd(&g_doubles_needed, 1ull);
+    if (ran) atomicAdd(&g_doubles_run, 1ull);
+  }
+}
+#else
+__device__ __forceinline__ void prof_start() {}
+__device__ __forceinline__ void mark(int) {}
+__device__ __forceinline__ void phase_override(int) {}
+__device__ __forceinline__ void count_double(bool, bool) {}
+#endif
 
 // Zero the work area: slot padding and LEAD must read as zero.
 __device__ __forceinline__ void clear_work() {
@@ -104,6 +160,7 @@ __device__ __forceinline__ void reduce_wide(int c) {
     out[j] = v;
   }
   __syncthreads();
+  mark(PH_REDUCE);
 }
 
 // slot c = slot a * slot b; c may be a or b.  Row t = XOR_{i<=t} a[i]
@@ -143,6 +200,7 @@ __device__ __noinline__ void gf_mul(int c, int a, int b) {
     if (t < M - 1) smem[WIDE_OFF + M + t] = hi;
   }
   __syncthreads();
+  mark(PH_MUL);
   reduce_wide(c);
 }
 
@@ -152,6 +210,7 @@ __device__ __forceinline__ void gf_sqr(int c, int a) {
   for (int k = threadIdx.x; k < WIDE; k += THREADS)
     smem[WIDE_OFF + k] = (k & 1) ? 0u : pa[k >> 1];
   __syncthreads();
+  mark(PH_REDUCE);
   reduce_wide(c);
 }
 
@@ -180,6 +239,7 @@ __device__ __forceinline__ void zero_masks(int e0, int e1, int e2, int e3, uint3
     out[q] = ~r;
   }
   __syncthreads();
+  mark(PH_XOR);
 }
 
 // Tangent doubling of P into (D5, D2, D3):
@@ -195,6 +255,7 @@ __device__ __forceinline__ void point_double() {
     el(D4)[j] = t ^ el(D0)[j];  // T + S
   }
   __syncthreads();
+  mark(PH_XOR);
   gf_sqr(D2, D2);      // X^4
   gf_mul(D1, D1, D4);  // TT = T(T+S)
   gf_mul(D3, D3, D0);  // Z3 = S^3
@@ -203,6 +264,7 @@ __device__ __forceinline__ void point_double() {
   gf_mul(D1, D1, D4);  // TT (T+S)
   for (int j = threadIdx.x; j < M; j += THREADS) el(D2)[j] ^= el(D1)[j];  // Y3
   __syncthreads();
+  mark(PH_XOR);
 }
 
 // P = P + Q, masked-complete (same cases as xsk233_bs.add):
@@ -219,6 +281,7 @@ __device__ __forceinline__ void point_add() {
     el(S3)[j] ^= el(S4)[j];  // V
   }
   __syncthreads();
+  mark(PH_XOR);
   uint32_t zm[4];  // inf_p, inf_q, v_zero, u_zero
   zero_masks(Z1, Z2, S3, S1, zm);
   gf_sqr(S4, S3);      // V^2
@@ -230,6 +293,7 @@ __device__ __forceinline__ void point_add() {
   gf_mul(S4, S4, Z2);  // V^2 Z2
   for (int j = threadIdx.x; j < M; j += THREADS) el(S2)[j] ^= el(S6)[j] ^ el(S5)[j];  // N
   __syncthreads();
+  mark(PH_XOR);
   gf_mul(S0, S5, S0);  // Z3 = V^3 W
   gf_mul(S5, S5, Z2);  // V^3 Z2
   gf_mul(S6, S2, S3);  // X3 = N V
@@ -237,14 +301,19 @@ __device__ __forceinline__ void point_add() {
   gf_mul(S5, Y1, S5);  // Y1 V^3 Z2
   for (int j = threadIdx.x; j < M; j += THREADS) el(S4)[j] ^= el(S2)[j];  // X1 V^2 Z2 + N
   __syncthreads();
+  mark(PH_XOR);
   gf_mul(S4, S1, S4);  // U (X1 V^2 Z2 + N)
   gf_mul(S3, S3, S2);  // V N
   for (int j = threadIdx.x; j < M; j += THREADS) el(S4)[j] ^= el(S3)[j] ^ el(S5)[j];  // Y3
   __syncthreads();
-
-  point_double();  // (D5, D2, D3)
+  mark(PH_XOR);
 
   const uint32_t inf_p = zm[0], inf_q = zm[1], v_zero = zm[2], u_zero = zm[3];
+  count_double((v_zero & u_zero & ~inf_p & ~inf_q) != 0u, true);
+  phase_override(PH_DOUBLE);
+  point_double();  // (D5, D2, D3)
+  phase_override(N_PHASES);
+
   const uint32_t m_inf = v_zero & ~u_zero;  // P = -Q
   const uint32_t m_dbl = v_zero & u_zero;   // P = Q
   const int gen[3] = {S6, S4, S0};
@@ -259,6 +328,7 @@ __device__ __forceinline__ void point_add() {
     el(X1 + c)[j] = r;
   }
   __syncthreads();
+  mark(PH_SELECT);
 }
 
 __global__ void __launch_bounds__(THREADS, 4)
@@ -276,6 +346,7 @@ ladder_kernel(const uint32_t* __restrict__ oh, const uint32_t* __restrict__ ng,
   __syncthreads();
   if (threadIdx.x == 0) el(Y1)[0] = 0xffffffffu;  // acc = (0 : 1 : 0)
   __syncthreads();
+  prof_start();
 
   for (int w = 0; w < N_WINDOWS; ++w) {
     const int wi = N_WINDOWS - 1 - w;
@@ -283,8 +354,10 @@ ladder_kernel(const uint32_t* __restrict__ oh, const uint32_t* __restrict__ ng,
       wmask[threadIdx.x] = oh[((size_t)wi * TABLE_SIZE + threadIdx.x) * cols + col];
     else if (threadIdx.x == TABLE_SIZE)
       wmask[TABLE_SIZE] = ng[(size_t)wi * cols + col];
+    phase_override(PH_FROB);
     for (int c = 0; c < 3; ++c)
       for (int r = 0; r < 4; ++r) gf_sqr(X1 + c, X1 + c);  // tau^4
+    phase_override(N_PHASES);
     // (gf_sqr's barriers also publish wmask)
     const uint32_t negm = wmask[TABLE_SIZE];
     for (int j = threadIdx.x; j < M; j += THREADS) {
@@ -299,8 +372,15 @@ ladder_kernel(const uint32_t* __restrict__ oh, const uint32_t* __restrict__ ng,
       el(Z2)[j] = v[2];
     }
     __syncthreads();
+    mark(PH_PICK);
     point_add();
   }
+#ifdef BS_PHASE_CLOCKS
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < N_PHASES; ++k) atomicAdd(&g_phase_cycles[k], prof()[k]);
+    atomicAdd(&g_phase_windows, (unsigned long long)N_WINDOWS);
+  }
+#endif
 
   for (int idx = threadIdx.x; idx < 3 * M; idx += THREADS)
     out[(size_t)idx * cols + col] = el(X1 + idx / M)[idx % M];
@@ -317,6 +397,7 @@ point_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
     el(X2 + idx / M)[idx % M] = q[(size_t)idx * cols + col];
   }
   __syncthreads();
+  prof_start();
   point_add();
   for (int idx = threadIdx.x; idx < 3 * M; idx += THREADS)
     out[(size_t)idx * cols + col] = el(X1 + idx / M)[idx % M];
@@ -344,6 +425,44 @@ int bs_point_add(const void* p, const void* q, void* out, int cols, void* stream
       (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, cols);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks per SM of ladder_kernel (what = 0) or point_add_kernel
+// (what = 1) at their launch's shared memory; negative on an error.
+int bs_occupancy(int what) {
+  int n = -1;
+  cudaError_t e = cudaFuncSetAttribute(
+      ladder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)LADDER_SMEM);
+  if (e != cudaSuccess) return -(int)e;
+  e = what == 0
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ladder_kernel, THREADS, LADDER_SMEM)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, point_add_kernel, THREADS, ADD_SMEM);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+#ifdef BS_PHASE_CLOCKS
+const char* bs_phase_names() { return "frob,pick,mul,reduce,xor,double,select"; }
+
+// Zero the phase clocks and the doubling counts.
+int bs_phase_reset() {
+  const unsigned long long z[N_PHASES] = {};
+  cudaMemcpyToSymbol(g_phase_cycles, z, sizeof(z));
+  cudaMemcpyToSymbol(g_phase_windows, z, sizeof(z[0]));
+  cudaMemcpyToSymbol(g_doubles_run, z, sizeof(z[0]));
+  cudaMemcpyToSymbol(g_doubles_needed, z, sizeof(z[0]));
+  return (int)cudaGetLastError();
+}
+
+// out[0..N_PHASES) = cycles per phase summed over blocks, then the
+// column-windows timed, doublings run and doublings needed.
+int bs_phase_read(void* out) {
+  unsigned long long* o = (unsigned long long*)out;
+  cudaMemcpyFromSymbol(o, g_phase_cycles, sizeof(unsigned long long) * N_PHASES);
+  cudaMemcpyFromSymbol(o + N_PHASES, g_phase_windows, sizeof(unsigned long long));
+  cudaMemcpyFromSymbol(o + N_PHASES + 1, g_doubles_run, sizeof(unsigned long long));
+  cudaMemcpyFromSymbol(o + N_PHASES + 2, g_doubles_needed, sizeof(unsigned long long));
+  return (int)cudaGetLastError();
+}
+#endif
 
 const char* bs_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -15,6 +15,10 @@ the kernel or raises -- there is no fallback.  The kernels are built
 from the repository's source with nvcc at first use (into
 dvpari_tpu_torch/build/) and bound through ctypes.  Each wrapper counts
 its launches in `<wrapper>.launches`.
+
+`library(defines=PROFILE_DEFINES)` builds the same source a second time
+with phase clocks and doubling counters compiled in; `profile_ladder` and
+`profile_point_add` launch that build (uncounted) and read them.
 """
 
 from __future__ import annotations
@@ -40,8 +44,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lib = None
-build_log = ""  # nvcc's output (ptxas register / shared-memory report)
+PROFILE_DEFINES = ("BS_PHASE_CLOCKS",)
+
+_libs = {}
+build_logs = {}  # library path -> nvcc's output (ptxas registers, spills, shared memory)
 
 
 def _nvcc() -> str:
@@ -54,32 +60,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def build() -> str:
-    """Compile csrc/bs_ladder.cu for sm_90a (once per source content);
-    returns the shared library's path."""
-    global build_log
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:12]
+def build(source: str = SOURCE, defines=()) -> str:
+    """Compile `source` (csrc/bs_ladder.cu or a copy of it) for sm_90a
+    with -D`defines`, once per content and defines; returns the shared
+    library's path."""
+    with open(source, "rb") as f:
+        key = f.read() + repr(sorted(defines)).encode()
+    tag = hashlib.sha256(key).hexdigest()[:12]
     so = os.path.join(BUILD_DIR, f"libbs_ladder_{tag}.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp, source],
         capture_output=True, text=True, check=False,
     )
-    build_log = proc.stdout + proc.stderr
+    build_logs[so] = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_logs[so]}")
     os.replace(tmp, so)
     return so
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
+def library(source: str = SOURCE, defines=()) -> ctypes.CDLL:
+    """The built library of `source` with `defines`, loaded once."""
+    so = build(source, defines)
+    if so not in _libs:
+        lib = ctypes.CDLL(so)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.bs_ladder.argtypes = [vp, vp, vp, ci, vp, ci, vp]
         lib.bs_ladder.restype = ci
@@ -87,8 +95,16 @@ def _load():
         lib.bs_point_add.restype = ci
         lib.bs_error_string.argtypes = [ci]
         lib.bs_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        if hasattr(lib, "bs_occupancy"):
+            lib.bs_occupancy.argtypes = [ci]
+            lib.bs_occupancy.restype = ci
+        if hasattr(lib, "bs_phase_read"):
+            lib.bs_phase_names.restype = ctypes.c_char_p
+            lib.bs_phase_reset.restype = ci
+            lib.bs_phase_read.argtypes = [vp]
+            lib.bs_phase_read.restype = ci
+        _libs[so] = lib
+    return _libs[so]
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -102,9 +118,9 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(rc: int, what: str) -> None:
+def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
-        msg = _load().bs_error_string(rc).decode()
+        msg = lib.bs_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
@@ -121,13 +137,8 @@ def _require_cuda(t: torch.Tensor) -> None:
 # The two kernels' wrappers: plain version on CPU tensors, kernel on CUDA
 # ---------------------------------------------------------------------------
 
-def ladder(oh: torch.Tensor, ng: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """[k_i]P_i for every packed slot: oh int32[62, 11, C] digit masks,
-    ng int32[62, C] negate masks, table int32[11, 3, 233, C] (or
-    [..., 1]: one table shared by every column) -> int32[3, 233, C].
-    xsk233_bs.ladder on CPU tensors, csrc/bs_ladder.cu on CUDA."""
-    if oh.device.type == "cpu":
-        return bs.ladder(oh, ng, table)
+def launch_ladder(lib, oh: torch.Tensor, ng: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Launch `lib`'s ladder kernel on CUDA operands (no count)."""
     _require_cuda(oh)
     C = oh.shape[-1]
     tcols = table.shape[-1]
@@ -138,11 +149,23 @@ def ladder(oh: torch.Tensor, ng: torch.Tensor, table: torch.Tensor) -> torch.Ten
     _check("ng", ng, (N_WINDOWS, C), dev)
     _check("table", table, (TABLE_SIZE, 3, M, tcols), dev)
     out = torch.empty((3, M, C), dtype=torch.int32, device=dev)
-    rc = _load().bs_ladder(
+    rc = lib.bs_ladder(
         oh.data_ptr(), ng.data_ptr(), table.data_ptr(), tcols,
         out.data_ptr(), C, _stream(dev),
     )
-    _raise_on(rc, "bs_ladder")
+    _raise_on(lib, rc, "bs_ladder")
+    return out
+
+
+def ladder(oh: torch.Tensor, ng: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """[k_i]P_i for every packed slot: oh int32[62, 11, C] digit masks,
+    ng int32[62, C] negate masks, table int32[11, 3, 233, C] (or
+    [..., 1]: one table shared by every column) -> int32[3, 233, C].
+    xsk233_bs.ladder on CPU tensors, csrc/bs_ladder.cu on CUDA."""
+    if oh.device.type == "cpu":
+        return bs.ladder(oh, ng, table)
+    _require_cuda(oh)
+    out = launch_ladder(library(), oh, ng, table)
     ladder.launches += 1
     return out
 
@@ -150,11 +173,8 @@ def ladder(oh: torch.Tensor, ng: torch.Tensor, table: torch.Tensor) -> torch.Ten
 ladder.launches = 0
 
 
-def point_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Masked-complete add of two (3, 233, C) point batches, slot by
-    slot; xsk233_bs.add on CPU tensors, the CUDA kernel on CUDA."""
-    if p.device.type == "cpu":
-        return bs.add(p, q)
+def launch_point_add(lib, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Launch `lib`'s point-add kernel on CUDA operands (no count)."""
     _require_cuda(p)
     p, q = p.contiguous(), q.contiguous()
     C = p.shape[-1]
@@ -163,8 +183,18 @@ def point_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     if C < 1:
         raise ValueError("empty point batch")
     out = torch.empty_like(p)
-    rc = _load().bs_point_add(p.data_ptr(), q.data_ptr(), out.data_ptr(), C, _stream(p.device))
-    _raise_on(rc, "bs_point_add")
+    rc = lib.bs_point_add(p.data_ptr(), q.data_ptr(), out.data_ptr(), C, _stream(p.device))
+    _raise_on(lib, rc, "bs_point_add")
+    return out
+
+
+def point_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Masked-complete add of two (3, 233, C) point batches, slot by
+    slot; xsk233_bs.add on CPU tensors, the CUDA kernel on CUDA."""
+    if p.device.type == "cpu":
+        return bs.add(p, q)
+    _require_cuda(p)
+    out = launch_point_add(library(), p, q)
     point_add.launches += 1
     return out
 
@@ -175,6 +205,50 @@ point_add.launches = 0
 def reset_counts() -> None:
     ladder.launches = 0
     point_add.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The profiling build: phase clocks, doubling counts, occupancy
+# ---------------------------------------------------------------------------
+
+def occupancy(lib=None) -> "dict[str, int]":
+    """Resident blocks per SM of each kernel at its launch's shared memory."""
+    lib = lib or library()
+    out = {"ladder": lib.bs_occupancy(0), "point_add": lib.bs_occupancy(1)}
+    for name, n in out.items():
+        if n < 0:
+            _raise_on(lib, -n, f"occupancy of {name}")
+    return out
+
+
+def _profiled(lib, launch) -> "tuple[torch.Tensor, dict]":
+    torch.cuda.synchronize()
+    _raise_on(lib, lib.bs_phase_reset(), "bs_phase_reset")
+    out = launch()
+    torch.cuda.synchronize()
+    names = lib.bs_phase_names().decode().split(",")
+    raw = (ctypes.c_ulonglong * (len(names) + 3))()
+    _raise_on(lib, lib.bs_phase_read(ctypes.addressof(raw)), "bs_phase_read")
+    vals = list(raw)
+    stats = {"cycles": dict(zip(names, vals)), "windows": vals[len(names)],
+             "doubles_run": vals[len(names) + 1], "doubles_needed": vals[len(names) + 2]}
+    return out, stats
+
+
+def profile_ladder(oh, ng, table, source: str = SOURCE):
+    """The profiling build's ladder on CUDA operands -> (out, stats):
+    stats["cycles"] is each phase's clock64() cycles summed over the
+    blocks (divide by stats["windows"] for cycles per column-window),
+    doubles_run / doubles_needed count column-windows."""
+    lib = library(source, PROFILE_DEFINES)
+    return _profiled(lib, lambda: launch_ladder(lib, oh, ng, table))
+
+
+def profile_point_add(p, q, source: str = SOURCE):
+    """The profiling build's point add -> (out, stats); the doubling
+    counts are per column."""
+    lib = library(source, PROFILE_DEFINES)
+    return _profiled(lib, lambda: launch_point_add(lib, p, q))
 
 
 # ---------------------------------------------------------------------------
