@@ -8,10 +8,15 @@ version on the card (bit-equal), then drives the port's main path at the
 size a prove uses: the fixed-base fan-out of 2^18 points (g_k of an
 m = 2^16 prove), a 2^18-point MSM over those points and a ragged
 2^16 + 5-point MSM, each checked against the python-int host oracle
-(sum k_i e_i mod R) * G.  Prints timings beside the card's name and
-power limit, one JSON line of per-kernel numbers, and as the last line
-{"ok": true, "device": {...}}.  Any failure raises: no phase is caught.
-Exits non-zero, printing no result, when CUDA is unavailable.
+(sum k_i e_i mod R) * G.  Ladder operands crafted so that the complete
+add needs its doubling (ops/msm_kernel.py:doubling_operands) and a
+point-add column with one P = Q lane hold the kernels' doubling branch
+to the plain versions too.  A second build with phase clocks
+(BS_PHASE_CLOCKS) splits the ladder's cycles per window by phase and
+counts the doublings that ran.  Prints timings beside the card's name
+and power limit, one JSON line of per-kernel numbers, and as the last
+line {"ok": true, "device": {...}}.  Any failure raises: no phase is
+caught.  Exits non-zero, printing no result, when CUDA is unavailable.
 """
 
 import json
@@ -20,7 +25,7 @@ import random
 import subprocess
 import sys
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 import multiprocessing
 
 N_FANOUT = 1 << 18  # g_k of an m = 2^16 prove
@@ -123,13 +128,27 @@ def main() -> int:
         oracle_ragged = pool.submit(_smul_g, want_ragged)
         oracle_spots = [pool.submit(_smul_g, es[j]) for j in spots]
 
-        # -- phase 2: build ---------------------------------------------------
+        # -- phase 2: build (the main library and the profiling one) --------
         t0 = time.perf_counter()
-        so = msm_kernel.build()
-        log(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(so)}")
-        for line in msm_kernel.build_logs.get(so, "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas: {line.strip()}")
+        with ThreadPoolExecutor(2) as builds:
+            jobs = [builds.submit(msm_kernel.build),
+                    builds.submit(msm_kernel.build, msm_kernel.SOURCE, msm_kernel.PROFILE_DEFINES)]
+            libs = [j.result() for j in jobs]
+        log(f"build: {time.perf_counter() - t0:.2f} s -> "
+            + ", ".join(os.path.relpath(so) for so in libs))
+        for what, so in zip(("main", "profiling"), libs):
+            for line in msm_kernel.build_logs.get(so, "").splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log(f"  ptxas ({what}): {line.strip()}")
+        occ = msm_kernel.occupancy()
+        log(f"resident blocks per SM: {json.dumps(occ)} (256 threads each)")
+        if occ["ladder"] < 1 or occ["point_add"] < 1:
+            raise AssertionError(f"a kernel cannot be resident: {occ}")
+
+        def doubles_of(stats, want, what):
+            if stats["doubles_run"] != want or stats["doubles_needed"] != want:
+                raise AssertionError(f"{what}: doubling ran {stats['doubles_run']} times, "
+                                     f"needed {stats['doubles_needed']}, expected {want}")
 
         # -- phase 3: kernels vs plain versions on the card -------------------
         srng = np.random.default_rng(SEED)
@@ -168,16 +187,40 @@ def main() -> int:
             lambda: msm_kernel.ladder(oh_m, ng_m, table_s),
             lambda: bs.ladder(oh_m, ng_m, table_s),
         )
-        # point add: generic pairs, P + P, P + (-P), infinity / zero planes
+        # point add: generic pairs, P + P, P + (-P), one column with a
+        # single P = Q lane (bit 3: slot 99, the last finite point), infinity / zero planes
         q_s = torch.roll(planes_s, 1, dims=-1)
         q_s[..., 1] = planes_s[..., 1]
         q_s[..., 2] = bs.neg(planes_s[..., 2:3])[..., 0]
+        lane = torch.tensor(1 << 3, dtype=torch.int32, device=dev)
+        q_s[..., 3] = (planes_s[..., 3] & lane) | (q_s[..., 3] & ~lane)
         q_s = q_s.contiguous()
-        held(
+        need = msm_kernel.doubling_lanes(planes_s, q_s)
+        if int(need[3]) != 1 << 3 or int(need[1]) == 0 or bool((need[[0, 2, 4]] != 0).any()):
+            raise AssertionError(f"point_add operands: P = Q lanes {need.tolist()}")
+        sum_s = held(
             "point_add",
             lambda: msm_kernel.point_add(planes_s, q_s),
             lambda: bs.add(planes_s, q_s),
         )
+        out, stats = msm_kernel.profile_point_add(planes_s, q_s)
+        if not torch.equal(out, sum_s):
+            raise AssertionError("profiling build's point_add != main build's")
+        doubles_of(stats, 2, "point_add with P + P and one P = Q lane")
+        # the ladder on operands whose add at window 60 doubles in four
+        # slots of four columns
+        slots_s = [0, 37, 70, 99]  # finite points (scalars 0..99 are non-zero)
+        oh_d, ng_d, tab_d = msm_kernel.doubling_operands(table_s, slots_s, SEED)
+        lad_d = held(
+            "ladder",
+            lambda: msm_kernel.ladder(oh_d, ng_d, tab_d),
+            lambda: bs.ladder(oh_d, ng_d, tab_d),
+            timed=False,
+        )
+        out, stats = msm_kernel.profile_ladder(oh_d, ng_d, tab_d)
+        if not torch.equal(out, lad_d):
+            raise AssertionError("profiling build's ladder != main build's")
+        doubles_of(stats, 4, "crafted ladder, 5 columns")
         # the entry points as a whole, against the plain composition
         held(
             "msm_packed",
@@ -192,7 +235,7 @@ def main() -> int:
             timed=False,
         )
         log("kernels " + json.dumps({
-            "compare_cols": {"ladder": [C_s, C_s + 1], "point_add": C_s + 1},
+            "compare_cols": {"ladder": [C_s, C_s + 1, C_s + 1], "point_add": C_s + 1},
             "kernels": [
                 {"name": "ladder", "launches": msm_kernel.ladder.launches, "matches_plain": True},
                 {"name": "point_add", "launches": msm_kernel.point_add.launches,
@@ -256,6 +299,37 @@ def main() -> int:
     log(f"kernels equal their plain versions at the main path's shapes: ladder {C} "
         f"columns (shared and per-column table), point_add {6 * C} columns (table "
         f"build) and {half} (first fold step)")
+    # the crafted doubling operands at full width: three slots, three columns
+    slots = [0, 32 * (C // 8) + 7, 32 * C - 1]
+    oh_d, ng_d, tab_d = msm_kernel.doubling_operands(table, slots, SEED)
+    lad_d = held("ladder", lambda: msm_kernel.ladder(oh_d, ng_d, tab_d),
+                 lambda: bs.ladder(oh_d, ng_d, tab_d), timed=False)
+    out, stats = msm_kernel.profile_ladder(oh_d, ng_d, tab_d)
+    if not torch.equal(out, lad_d):
+        raise AssertionError("profiling build's ladder != main build's (crafted)")
+    doubles_of(stats, 3, f"crafted ladder, {C} columns")
+    log(f"crafted doubling operands: ladder {C} columns equals its plain version; "
+        f"doubling ran in {stats['doubles_run']} column-windows")
+    del oh_d, ng_d, tab_d, lad_d, out
+
+    # -- attribution: the profiling build on the main path's ladder operands
+    prof = {}
+    for what, ops, want in (("MSM 2^18", (oh, ng, table), lad),
+                            ("fan-out 2^18", (oh_e, ng_e, gtab), None)):
+        out, stats = msm_kernel.profile_ladder(*ops)
+        if want is not None and not torch.equal(out, want):
+            raise AssertionError(f"profiling build's ladder != main build's ({what})")
+        doubles_of(stats, 0, f"{what} ladder")
+        prof[what] = stats
+    st = prof["MSM 2^18"]
+    per_window = {k: v / st["windows"] for k, v in st["cycles"].items()}
+    log("ladder phases " + json.dumps({
+        "operands": "MSM 2^18, per-column table", "build": "BS_PHASE_CLOCKS",
+        "cycles_per_column_window": {k: round(v, 1) for k, v in per_window.items()},
+        "total": round(sum(per_window.values()), 1),
+        "column_windows": st["windows"],
+        "doubles_run": {k: v["doubles_run"] for k, v in prof.items()},
+    }) + f" {tag}")
 
     # -- phase 7: timings -----------------------------------------------------
     t_fan = median_s(lambda: xsk233.mulgen_limbs(es_limbs, device=dev))
@@ -274,11 +348,15 @@ def main() -> int:
         "point_add": event_ms(lambda: msm_kernel.point_add(table[5], table[6])),
     }
     ms_shared = event_ms(lambda: msm_kernel.ladder(oh_e, ng_e, gtab))
+    ms_prof = event_ms(lambda: msm_kernel.profile_ladder(oh, ng, table))
+    _, add_stats = msm_kernel.profile_point_add(table[5], table[6])
     log(
         f"MSM 2^18 parts: recode {t_recode:.4f} s, table build {t_table:.4f} s, "
         f"ladder kernel {ms['ladder'] / 1e3:.4f} s, folds {t_fold:.4f} s {tag}"
     )
     log(f"fan-out 2^18 ladder kernel (shared table) {ms_shared / 1e3:.4f} s {tag}")
+    log(f"profiling build's ladder (MSM 2^18, with its reset and read-back) "
+        f"{ms_prof / 1e3:.4f} s against {ms['ladder'] / 1e3:.4f} s {tag}")
 
     for rec in compare.values():
         if "fns" in rec:
@@ -286,7 +364,9 @@ def main() -> int:
             rec["small_ms"] = 1e3 * median_s(kernel_fn)
             rec["plain_ms"] = 1e3 * median_s(plain_fn)
 
-    costs = {"ladder": roofline.ladder_cost(C, C), "point_add": roofline.point_add_cost(C)}
+    # bounds count the doublings these operands ran (profiling build)
+    costs = {"ladder": roofline.ladder_cost(C, C, prof["MSM 2^18"]["doubles_run"]),
+             "point_add": roofline.point_add_cost(C, add_stats["doubles_run"])}
     kernels = []
     for name, replaces in (("ladder", LADDER_TPU), ("point_add", ADD_TPU)):
         b_s, b_by = roofline.bound(costs[name], clock_mhz)

@@ -309,10 +309,21 @@ __device__ __forceinline__ void point_add() {
   mark(PH_XOR);
 
   const uint32_t inf_p = zm[0], inf_q = zm[1], v_zero = zm[2], u_zero = zm[3];
-  count_double((v_zero & u_zero & ~inf_p & ~inf_q) != 0u, true);
-  phase_override(PH_DOUBLE);
-  point_double();  // (D5, D2, D3)
-  phase_override(N_PHASES);
+  // The doubling survives the selects below only in lanes where P = Q
+  // and neither is infinity, so it runs only when some lane of the
+  // column is such a lane.  The masks are the same in every thread, so
+  // the branch is block-uniform.  Where it is skipped, the D slots hold
+  // stale values, and m_dbl picks them only in lanes that the inf_q /
+  // inf_p selects then overwrite.  Honest scalars reach P = Q in a lane
+  // only if tau^4 * prefix == digit (mod n), with probability about
+  // 2^-228 per window, so the branch tells nothing about secret scalars.
+  const bool need_double = (v_zero & u_zero & ~inf_p & ~inf_q) != 0u;
+  count_double(need_double, need_double);
+  if (need_double) {
+    phase_override(PH_DOUBLE);
+    point_double();  // (D5, D2, D3)
+    phase_override(N_PHASES);
+  }
 
   const uint32_t m_inf = v_zero & ~u_zero;  // P = -Q
   const uint32_t m_dbl = v_zero & u_zero;   // P = Q

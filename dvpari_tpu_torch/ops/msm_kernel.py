@@ -29,8 +29,10 @@ import os
 import shutil
 import subprocess
 
+import numpy as np
 import torch
 
+from dvpari_tpu_torch.ops import gf2bs as F
 from dvpari_tpu_torch.ops import xsk233_bs as bs
 from dvpari_tpu_torch.ops.tnaf import N_WINDOWS, TABLE_SIZE
 
@@ -205,6 +207,50 @@ point_add.launches = 0
 def reset_counts() -> None:
     ladder.launches = 0
     point_add.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Operands that take the complete add's doubling branch
+# ---------------------------------------------------------------------------
+
+def doubling_lanes(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The lanes of p + q that need the doubling (P = Q, neither
+    infinity), as the complete add's masks define them: int32[*cols]."""
+    X1, Y1, Z1 = p[0], p[1], p[2]
+    X2, Y2, Z2 = q[0], q[1], q[2]
+    u = F.mul(Y1, Z2) ^ F.mul(Y2, Z1)
+    v = F.mul(X1, Z2) ^ F.mul(X2, Z1)
+    return (F.is_zero_mask(v) & F.is_zero_mask(u)
+            & ~F.is_zero_mask(Z1) & ~F.is_zero_mask(Z2))
+
+
+def doubling_operands(table: torch.Tensor, slots, seed: int, a: int = 1, b: int = 2):
+    """Ladder operands under which the add at window 60 is a doubling in
+    each of `slots` (point indices 32 * column + bit): `table` with entry
+    b replaced by tau^4(entry a), and digit masks that pick entry a at
+    window 61 and entry b at window 60, both unnegated, in those slots,
+    and random digits and signs (from `seed`) everywhere else, save that
+    pair of digits with equal signs, which doubles as well.  There the
+    accumulator after window 61 is entry a, so tau^4 of it equals the
+    picked entry b.  Entry a must be finite in those slots.  Returns
+    (oh, ng, table) on the table's device."""
+    cols = table.shape[-1]
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, TABLE_SIZE, (N_WINDOWS, 32 * cols))
+    sgn = np.where(rng.integers(0, 2, (N_WINDOWS, 32 * cols)) == 1, -1, 1)
+    # elsewhere, never a then b with equal signs: that too doubles
+    clash = ((idx[N_WINDOWS - 1] == a) & (idx[N_WINDOWS - 2] == b)
+             & (sgn[N_WINDOWS - 1] == sgn[N_WINDOWS - 2]))
+    idx[N_WINDOWS - 2, clash] = (b + 1) % TABLE_SIZE
+    for s in slots:
+        idx[N_WINDOWS - 1, s], idx[N_WINDOWS - 2, s] = a, b
+        sgn[N_WINDOWS - 1, s] = sgn[N_WINDOWS - 2, s] = 1
+    oh, ng = bs.digit_masks(idx, sgn)
+    crafted = table.clone()
+    crafted[b] = bs.frobenius(table[a], 4)
+    dev = table.device
+    return (torch.from_numpy(oh.view(np.int32)).to(dev),
+            torch.from_numpy(ng.view(np.int32)).to(dev), crafted)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,12 @@ Two counts live here:
   csrc/bs_ladder.cu compute, formula by formula: a multiply is the
   233 x 233 schoolbook (one AND and one XOR per term) plus the
   trinomial fold, a squaring is the fold of the interleaved rows, and a
-  complete add is 24 multiplies and 5 squarings plus its XORs, zero
-  tests and selects.  These give the bound that chip_smoke.py reports.
+  complete add is the generic add (17 multiplies, 2 squarings, its XORs,
+  zero tests and selects) plus, only where some lane of a column has
+  P = Q, the doubling (7 multiplies, 3 squarings, 3 XOR passes).  The
+  kernels skip the doubling elsewhere, so a launch's count takes the
+  number of column-windows (or columns) whose doubling ran.  These give
+  the bound that chip_smoke.py reports.
 
 Counts are 32-bit lane operations per 32-point column.  `fused` counts
 the two-input operations inside `lane_ops` that a three-input LOP3 does
@@ -105,8 +109,8 @@ def msm_bitsliced_cost(n_points: int) -> Cost:
 # The CUDA kernels' own count (csrc/bs_ladder.cu), per 32-point column
 # ---------------------------------------------------------------------------
 
-ADD_MULS = 24  # gf_mul calls in point_add + point_double
-ADD_SQRS = 5  # gf_sqr calls in point_add + point_double
+GENERIC_MULS, GENERIC_SQRS = 17, 2  # the generic add
+DOUBLE_MULS, DOUBLE_SQRS = 7, 3  # the doubling
 FROB_SQRS = 12  # tau^4 of X, Y, Z per window
 
 
@@ -136,24 +140,31 @@ MUL = Cost(2 * M * M - WIDE, 0.0, M * M - WIDE) + _fold(range(WIDE))
 SQR = _fold(range(0, WIDE, 2))  # the interleave only moves words
 _PICK = Cost(3 * M * (2 * TABLE_SIZE - 1) + 2 * M, 0.0,
              3 * M * (TABLE_SIZE - 1) + M)  # 11 masked entries, then cneg
-_ADD_XORS = Cost(10 * M, 0.0, 2 * M)  # U, V, N, Y3 and the doubling's T, T+S, Y3
+_GENERIC_XORS = Cost(7 * M, 0.0, 2 * M)  # U, V, N (two), X1 V^2 Z2 + N, Y3 (two)
+_DOUBLE_XORS = Cost(3 * M, 0.0, 0.0)  # T, T + S, Y3
 _ZERO_MASKS = Cost(4 * M, 0.0, 4 * ((M - 1) // 2))  # OR-reduce 4 elements, NOT
 _SELECTS = Cost(4 * 3 * 3 * M, 0.0, 4 * 2 * 3 * M)  # 4 x (a & m) | (b & ~m)
-ADD = MUL.scaled(ADD_MULS) + SQR.scaled(ADD_SQRS) + _ADD_XORS + _ZERO_MASKS + _SELECTS
-WINDOW = SQR.scaled(FROB_SQRS) + _PICK + ADD
+GENERIC = (MUL.scaled(GENERIC_MULS) + SQR.scaled(GENERIC_SQRS) + _GENERIC_XORS
+           + _ZERO_MASKS + _SELECTS)
+DOUBLE = MUL.scaled(DOUBLE_MULS) + SQR.scaled(DOUBLE_SQRS) + _DOUBLE_XORS
+WINDOW = SQR.scaled(FROB_SQRS) + _PICK + GENERIC  # a window whose doubling is skipped
 
 
-def ladder_cost(cols: int, table_cols: int) -> Cost:
+def ladder_cost(cols: int, table_cols: int, doubles: int = 0) -> Cost:
     """One ladder launch over `cols` columns (32 points each) with a
-    table of `table_cols` columns (cols, or 1 when shared)."""
+    table of `table_cols` columns (cols, or 1 when shared), in which
+    `doubles` column-windows ran the doubling."""
     words = (N_WINDOWS * TABLE_SIZE * cols + N_WINDOWS * cols
              + TABLE_SIZE * 3 * M * table_cols + 3 * M * cols)
-    return WINDOW.scaled(N_WINDOWS * cols) + Cost(0.0, 4.0 * words)
+    return (WINDOW.scaled(N_WINDOWS * cols) + DOUBLE.scaled(doubles)
+            + Cost(0.0, 4.0 * words))
 
 
-def point_add_cost(cols: int) -> Cost:
-    """One point-add launch over `cols` columns: two operands, one result."""
-    return ADD.scaled(cols) + Cost(0.0, 4.0 * 3 * (3 * M * cols))
+def point_add_cost(cols: int, doubles: int = 0) -> Cost:
+    """One point-add launch over `cols` columns, `doubles` of which ran
+    the doubling: two operands, one result."""
+    return (GENERIC.scaled(cols) + DOUBLE.scaled(doubles)
+            + Cost(0.0, 4.0 * 3 * (3 * M * cols)))
 
 
 def int32_lane_ops_per_s(sm_clock_mhz: float) -> float:

@@ -108,12 +108,19 @@ def test_kernel_fold_count_matches_reduction(rows):
 
 
 def test_kernel_cost_counts_the_source():
-    """The complete add's multiplies and squarings are those of
-    csrc/bs_ladder.cu; a multiply is 233^2 terms plus a 306-LOP3 fold."""
+    """The generic add's and the doubling's multiplies and squarings are
+    those of csrc/bs_ladder.cu; a multiply is 233^2 terms plus a
+    306-LOP3 fold; a ladder's count adds one doubling per column-window
+    that ran it."""
     with open(msm_kernel.SOURCE) as f:
         src = f.read()
-    body = src[src.index("void point_double()") : src.index("__global__")]
-    assert len(re.findall(r"^\s*gf_mul\(", body, re.M)) == roofline.ADD_MULS
-    assert len(re.findall(r"^\s*gf_sqr\(", body, re.M)) == roofline.ADD_SQRS
+    dbl = src[src.index("void point_double()") : src.index("void point_add()")]
+    gen = src[src.index("void point_add()") : src.index("__global__")]
+    for body, muls, sqrs in ((gen, roofline.GENERIC_MULS, roofline.GENERIC_SQRS),
+                             (dbl, roofline.DOUBLE_MULS, roofline.DOUBLE_SQRS)):
+        assert len(re.findall(r"^\s*gf_mul\(", body, re.M)) == muls
+        assert len(re.findall(r"^\s*gf_sqr\(", body, re.M)) == sqrs
     assert roofline.MUL.instructions == 233 * 233 + 306
     assert roofline.ladder_cost(4, 4).instructions == 4 * 62 * roofline.WINDOW.instructions
+    assert (roofline.ladder_cost(4, 4, doubles=3).instructions
+            == roofline.ladder_cost(4, 4).instructions + 3 * roofline.DOUBLE.instructions)
