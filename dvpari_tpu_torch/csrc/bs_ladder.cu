@@ -16,24 +16,30 @@
 //   out   [3][233][cols]
 //
 // What bounds it: bitwise integer operations.  A field multiply is a
-// 233 x 233 AND/XOR schoolbook, ~29 multiplies per window; with the
-// operands in shared memory the integer and shared-memory pipes bound
-// it, not device memory (a column moves ~60 KB in, 2.8 KB out).
+// 233 x 233 AND/XOR schoolbook.  A window does 17 multiplies and 14
+// squarings (12 of them tau^4), plus 7 multiplies and 3 squarings in a
+// column where some lane doubles; with the operands in shared memory the
+// integer and shared-memory pipes bound it, not device memory (a column
+// moves ~60 KB in, 2.8 KB out).
 //
 // Design: one block of 256 threads per column.  The column's window
 // table (30 KB) is staged in shared memory once; the accumulator, the
 // picked entry and every add/double temporary live in shared memory
-// (19 field elements in 256-word slots, zero past word 233, and one
-// 465-word product).  A multiply gives thread t the product rows t and
-// 233 + t, which together hold exactly 233 AND/XOR terms, so the work is
-// even.  The rows' b-operand reads are one conflict-free load per term;
-// the a-operand index is the same in every lane of a warp (except over
-// the warp's own 32-row span, where each lane switches from row t to
-// row 233 + t), so a comes in one broadcast 16-byte load per 4 terms.
-// The multiply is one out-of-line function with rolled loops, which
-// keeps the ladder's code small: inlined and fully unrolled at its ~29
-// call sites per window it tripled the kernel's instructions and the
-// ladder ran 1.7x slower on an H100.  Four blocks fit on an SM.
+// (15 field elements in 256-word slots, zero past word 233, and four
+// 465-word products).  The field operations of the add fall into levels
+// of independent ones, and each level costs one barrier pair: mul_pass
+// computes up to four products at once, spreading their 4 x 233 row
+// pairs (rows t and 233 + t of a product, exactly 233 AND/XOR terms)
+// over all 256 threads, then out_pass reduces them, squares, and XORs
+// the level's results into their slots.  A squaring is a linear map:
+// each result word is the XOR of at most three operand words, read
+// directly.  The rows' b-operand reads are one conflict-free load per
+// term; the a-operand index is the same in every lane of a warp (except
+// where a lane switches from row t to row 233 + t), so a comes in one
+// broadcast 16-byte load per 4 terms.  The multiply is one out-of-line
+// function with rolled loops, which keeps the code small: inlined and
+// fully unrolled at every call site it tripled the kernel's instructions
+// and ran 1.7x slower on an H100.  Four blocks fit on an SM.
 
 #include <cstddef>
 #include <cstdint>
@@ -50,27 +56,32 @@ constexpr int TABLE_SIZE = 11;
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr int SLOT = 256;  // words per field element; [233, 256) stay zero
-constexpr int LEAD = 4;    // zero words before slot 0 (a multiply may read b[-3..-1])
+constexpr int LEAD = 4;    // zero words before slot 0 (a multiply may read b[-2..-1])
+constexpr int A_END = 236;  // a multiply reads a[0, 236): a is zero from 233
+constexpr unsigned FULL = 0xffffffffu;
 
 // Field-element slots in shared memory: P = (X1, Y1, Z1) is the
 // accumulator and the add's result, Q = (X2, Y2, Z2) the other operand,
-// S* the generic add's temporaries, D* the doubling's.
+// S* and D* temporaries.
 enum Slot {
   X1, Y1, Z1, X2, Y2, Z2,
   S0, S1, S2, S3, S4, S5, S6,
-  D0, D1, D2, D3, D4, D5,
+  D0, D1,
   NSLOT
 };
 
+constexpr int NPROD = 4;                        // products per mul_pass
 constexpr int WIDE_WORDS = 468;                 // WIDE rounded up to 16 bytes
 constexpr int F0 = LEAD;                        // slot 0
-constexpr int WIDE_OFF = F0 + NSLOT * SLOT;     // the 465-word product
-constexpr int RED_OFF = WIDE_OFF + WIDE_WORDS;  // 4 x NWARPS reduction words
+constexpr int WIDE_OFF = F0 + NSLOT * SLOT;     // NPROD 465-word products
+constexpr int RED_OFF = WIDE_OFF + NPROD * WIDE_WORDS;  // 4 x NWARPS zero-test words
 constexpr int WORK_WORDS = RED_OFF + 4 * NWARPS;
 
 // Phase clocks (built with -DBS_PHASE_CLOCKS only): thread 0 of every
 // block adds the clock64() cycles between block barriers to the phase it
 // is in, and counts the doublings that ran and those that a lane needed.
+// tau^4 and the table pick share their last barrier, so "frob" holds
+// both; "reduce" is out_pass (reductions, squarings, XORs).
 enum Phase { PH_FROB, PH_PICK, PH_MUL, PH_REDUCE, PH_XOR, PH_DOUBLE, PH_SELECT, N_PHASES };
 #ifdef BS_PHASE_CLOCKS
 constexpr int PROF_WORDS = 2 * (N_PHASES + 2);  // sums, last stamp, phase override
@@ -84,6 +95,21 @@ constexpr int TAB_OFF = PROF_OFF + PROF_WORDS;    // ladder: the window table
 constexpr int WMASK_OFF = TAB_OFF + TABLE_WORDS;  // ladder: 11 digit masks + negate
 constexpr size_t ADD_SMEM = sizeof(uint32_t) * (WORK_WORDS + PROF_WORDS);
 constexpr size_t LADDER_SMEM = sizeof(uint32_t) * (WMASK_OFF + 16);
+
+// mul_pass operands: product k is slot a_k * slot b_k, 10 bits each.
+__host__ __device__ constexpr uint64_t ops(int a0, int b0, int a1 = 0, int b1 = 0,
+                                           int a2 = 0, int b2 = 0, int a3 = 0, int b3 = 0) {
+  return (uint64_t)(a0 | b0 << 5) | (uint64_t)(a1 | b1 << 5) << 10 |
+         (uint64_t)(a2 | b2 << 5) << 20 | (uint64_t)(a3 | b3 << 5) << 30;
+}
+
+// out_pass results: slot dst = XOR of the reduced products in `wide`
+// (bit k: product k), the square of slot `sq` and slot `xr`.
+constexpr int NO = 31;
+constexpr uint32_t W0 = 1, W1 = 2, W2 = 4, W3 = 8;
+__host__ __device__ constexpr uint32_t res(int dst, uint32_t wide, int sq = NO, int xr = NO) {
+  return (uint32_t)dst | wide << 5 | (uint32_t)sq << 9 | (uint32_t)xr << 14;
+}
 
 }  // namespace
 
@@ -145,78 +171,125 @@ __device__ __forceinline__ void clear_work() {
   for (int k = threadIdx.x; k < WORK_WORDS; k += THREADS) smem[k] = 0u;
 }
 
-// slot c = wide mod (x^233 + x^74 + 1).  h[r] = wide[233 + r] folds to r
-// and r + 74; its rows 159.. land at 233.. and fold once more.
-__device__ __forceinline__ void reduce_wide(int c) {
-  const uint32_t* w = smem + WIDE_OFF;
+// Word j of product k mod (x^233 + x^74 + 1).  h[r] = wide[233 + r]
+// folds to r and r + 74; its rows 159.. land at 233.. and fold once more.
+__device__ __forceinline__ uint32_t reduced(int k, int j) {
+  const uint32_t* w = smem + WIDE_OFF + k * WIDE_WORDS;
   const uint32_t* h = w + M;
-  uint32_t* out = el(c);
-  for (int j = threadIdx.x; j < M; j += THREADS) {
-    uint32_t v = w[j];
-    if (j < M - 1) v ^= h[j];
-    if (j >= K) v ^= h[j - K];
-    if (j < K - 1) v ^= h[M - K + j];
-    if (j >= K && j < 2 * K - 1) v ^= h[M - 2 * K + j];
-    out[j] = v;
-  }
-  __syncthreads();
-  mark(PH_REDUCE);
+  uint32_t v = w[j];
+  if (j < M - 1) v ^= h[j];
+  if (j >= K) v ^= h[j - K];
+  if (j < K - 1) v ^= h[M - K + j];
+  if (j >= K && j < 2 * K - 1) v ^= h[M - 2 * K + j];
+  return v;
 }
 
-// slot c = slot a * slot b; c may be a or b.  Row t = XOR_{i<=t} a[i]
-// b[t-i], row 233+t = XOR_{i>t} a[i] b[t+233-i]; i runs to 236, and a is
-// zero from 233 (slot padding).
-__device__ __noinline__ void gf_mul(int c, int a, int b) {
-  const int t = threadIdx.x;
-  if (t < M) {
-    const uint32_t* pa = el(a);
-    const uint32_t* blo = el(b) + t;      // blo[-i] = b[t - i]
-    const uint32_t* bhi = el(b) + t + M;  // bhi[-i] = b[t + 233 - i]
-    const int w0 = t & ~31;  // first row of this warp
-    uint32_t lo = 0u, hi = 0u;
+// Word j of (slot s)^2: the same fold applied to the interleave
+// wide[2i] = a[i], wide[2i + 1] = 0, reading a directly.
+__device__ __forceinline__ uint32_t squared(int s, int j) {
+  const uint32_t* a = el(s);
+  if (j & 1) {
+    uint32_t v = a[(M + j) >> 1];                 // h[j]
+    if (j >= K) v ^= a[(M - K + j) >> 1];         // h[j - 74]
+    return v;
+  }
+  uint32_t v = a[j >> 1];
+  if (j < K - 1) v ^= a[(2 * M - K + j) >> 1];  // h[159 + j]
+  if (j >= K && j < 2 * K - 1) v ^= a[(2 * M - 2 * K + j) >> 1];  // h[85 + j]
+  return v;
+}
+
+// Terms i .. i + 3 of row pair t, where some lanes of the warp switch
+// from row t (i <= t) to row 233 + t.
+__device__ __forceinline__ void span4(const uint32_t* pa, const uint32_t* blo,
+                                      const uint32_t* bhi, int i, int t,
+                                      uint32_t& lo, uint32_t& hi) {
+  const uint4 v = *reinterpret_cast<const uint4*>(pa + i);
+  const uint32_t av[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int ii = i + q;
+    if (ii <= t) lo ^= av[q] & blo[-ii];
+    else hi ^= av[q] & bhi[-ii];
+  }
+}
+
+// Products k < n (n <= NPROD) into the wide buffers: product k = slot
+// a_k * slot b_k (see ops()).  Row t = XOR_{i<=t} a[i] b[t-i], row
+// 233+t = XOR_{i>t} a[i] b[t+233-i].  The n * 233 row pairs u = 233 k + t
+// go to the threads in warp-sized runs; a run may cross from product k
+// (rows t0..232) into k + 1 (rows 0..t31).  Per run, i falls into
+// [0, e1) and [e2, e3), where lanes differ in which row a term feeds,
+// [e1, e2), where each lane feeds one row (its b pointer picks which),
+// and [e3, 236), row 233 + t everywhere.  Slots may be operands of
+// several products; the results land in the wide buffers only.
+__device__ __noinline__ void mul_pass(int n, uint64_t prods) {
+  const int lane = threadIdx.x & 31;
+  const int total = n * M;
+  for (int base = threadIdx.x & ~31; base < total; base += THREADS) {
+    const int u = min(base + lane, total - 1);  // lanes past the end redo one, unstored
+    const int k = u / M, t = u - k * M;
+    const uint32_t ab = (uint32_t)(prods >> (10 * k));
+    const uint32_t* pa = el(ab & 31);
+    const uint32_t* blo = el((ab >> 5) & 31) + t;  // blo[-i] = b[t - i]
+    const uint32_t* bhi = blo + M;                 // bhi[-i] = b[t + 233 - i]
+    const int t0 = __shfl_sync(FULL, t, 0), t31 = __shfl_sync(FULL, t, 31);
+    const bool cross = t31 < t0;
+    const int e1 = cross ? (t31 & ~3) + 4 : 0;
+    const int e2 = t0 & ~3;
+    const int e3 = cross ? A_END : min(e2 + 36, A_END);
+    const bool low = t >= e2;  // in [e1, e2): row t (else row 233 + t)
+    const uint32_t* bmid = low ? blo : bhi;
+    uint32_t lo = 0u, hi = 0u, mid = 0u;
     int i = 0;
 #pragma unroll 1
-    for (; i < w0; i += 4) {  // i < w0 <= t: row t only
+    for (; i < e1; i += 4) span4(pa, blo, bhi, i, t, lo, hi);
+#pragma unroll 1
+    for (; i < e2; i += 4) {
       const uint4 v = *reinterpret_cast<const uint4*>(pa + i);
-      lo ^= (v.x & blo[-i]) ^ (v.y & blo[-i - 1]) ^ (v.z & blo[-i - 2]) ^ (v.w & blo[-i - 3]);
+      mid ^= (v.x & bmid[-i]) ^ (v.y & bmid[-i - 1]) ^ (v.z & bmid[-i - 2]) ^ (v.w & bmid[-i - 3]);
     }
 #pragma unroll 1
-    for (; i < w0 + 32; i += 4) {  // the warp's span: row t up to i = t
-      const uint4 v = *reinterpret_cast<const uint4*>(pa + i);
-      const uint32_t av[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int ii = i + q;
-        if (ii <= t) lo ^= av[q] & blo[-ii];
-        else hi ^= av[q] & bhi[-ii];
-      }
-    }
+    for (; i < e3; i += 4) span4(pa, blo, bhi, i, t, lo, hi);
 #pragma unroll 1
-    for (; i < 236; i += 4) {  // i > t: row 233 + t only
+    for (; i < A_END; i += 4) {
       const uint4 v = *reinterpret_cast<const uint4*>(pa + i);
       hi ^= (v.x & bhi[-i]) ^ (v.y & bhi[-i - 1]) ^ (v.z & bhi[-i - 2]) ^ (v.w & bhi[-i - 3]);
     }
-    smem[WIDE_OFF + t] = lo;
-    if (t < M - 1) smem[WIDE_OFF + M + t] = hi;
+    if (low) lo ^= mid;
+    else hi ^= mid;
+    if (base + lane < total) {
+      uint32_t* w = smem + WIDE_OFF + k * WIDE_WORDS;
+      w[t] = lo;
+      if (t < M - 1) w[M + t] = hi;
+    }
   }
   __syncthreads();
   mark(PH_MUL);
-  reduce_wide(c);
 }
 
-// slot c = (slot a)^2; c may be a.
-__device__ __forceinline__ void gf_sqr(int c, int a) {
-  const uint32_t* pa = el(a);
-  for (int k = threadIdx.x; k < WIDE; k += THREADS)
-    smem[WIDE_OFF + k] = (k & 1) ? 0u : pa[k >> 1];
+// n (<= 4) results of a level, written after mul_pass (see res()).  No
+// result's slot may be read by another result of the same pass (a result
+// may XOR its own slot).
+__device__ __noinline__ void out_pass(int n, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
+  for (int idx = threadIdx.x; idx < n * M; idx += THREADS) {
+    const int o = idx / M, j = idx - o * M;
+    const uint32_t r = o == 0 ? r0 : o == 1 ? r1 : o == 2 ? r2 : r3;
+    uint32_t v = 0u;
+#pragma unroll
+    for (int k = 0; k < NPROD; ++k)
+      if ((r >> (5 + k)) & 1u) v ^= reduced(k, j);
+    const int sq = (r >> 9) & 31, xr = (r >> 14) & 31;
+    if (sq != NO) v ^= squared(sq, j);
+    if (xr != NO) v ^= el(xr)[j];
+    el(r & 31)[j] = v;
+  }
   __syncthreads();
   mark(PH_REDUCE);
-  reduce_wide(c);
 }
 
-// Zero masks of four slots (bit set iff that element is 0), returned in
-// every thread.
-__device__ __forceinline__ void zero_masks(int e0, int e1, int e2, int e3, uint32_t out[4]) {
+// Warp partial ORs of four slots, for zero_masks after the next barrier.
+__device__ __forceinline__ void zero_partials(int e0, int e1, int e2, int e3) {
   const int t = threadIdx.x;
   uint32_t v[4] = {0u, 0u, 0u, 0u};
   if (t < M) {
@@ -226,109 +299,78 @@ __device__ __forceinline__ void zero_masks(int e0, int e1, int e2, int e3, uint3
     v[3] = el(e3)[t];
   }
 #pragma unroll
-  for (int q = 0; q < 4; ++q) v[q] = __reduce_or_sync(0xffffffffu, v[q]);
+  for (int q = 0; q < 4; ++q) v[q] = __reduce_or_sync(FULL, v[q]);
   if ((t & 31) == 0) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) smem[RED_OFF + q * NWARPS + (t >> 5)] = v[q];
   }
-  __syncthreads();
+}
+
+// Zero masks (bit set iff that element is 0) of zero_partials' slots,
+// the same in every thread.
+__device__ __forceinline__ void zero_masks(uint32_t out[4]) {
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     uint32_t r = 0;
     for (int w = 0; w < NWARPS; ++w) r |= smem[RED_OFF + q * NWARPS + w];
     out[q] = ~r;
   }
-  __syncthreads();
-  mark(PH_XOR);
 }
 
-// Tangent doubling of P into (D5, D2, D3):
+// Tangent doubling of P into (D1, S5, D0), in three levels:
 // S = XZ, T = X^2 + YZ, X3 = T(T+S)S, Y3 = X^4 S + T(T+S)^2, Z3 = S^3.
 __device__ __forceinline__ void point_double() {
-  gf_mul(D0, X1, Z1);  // S
-  gf_mul(D1, Y1, Z1);  // YZ
-  gf_sqr(D2, X1);      // X^2
-  gf_sqr(D3, D0);      // S^2
-  for (int j = threadIdx.x; j < M; j += THREADS) {
-    const uint32_t t = el(D2)[j] ^ el(D1)[j];  // T
-    el(D1)[j] = t;
-    el(D4)[j] = t ^ el(D0)[j];  // T + S
-  }
-  __syncthreads();
-  mark(PH_XOR);
-  gf_sqr(D2, D2);      // X^4
-  gf_mul(D1, D1, D4);  // TT = T(T+S)
-  gf_mul(D3, D3, D0);  // Z3 = S^3
-  gf_mul(D5, D1, D0);  // X3 = TT S
-  gf_mul(D2, D2, D0);  // X^4 S
-  gf_mul(D1, D1, D4);  // TT (T+S)
-  for (int j = threadIdx.x; j < M; j += THREADS) el(D2)[j] ^= el(D1)[j];  // Y3
-  __syncthreads();
-  mark(PH_XOR);
+  mul_pass(2, ops(X1, Z1, Y1, Z1));               // S, YZ
+  out_pass(4, res(S3, W0), res(S4, W1, X1),       // S, T
+           res(S5, 0, X1), res(S6, W0 | W1, X1));  // X^2, T + S
+  mul_pass(1, ops(S4, S6));                       // TT = T(T+S)
+  out_pass(3, res(S4, W0), res(D0, 0, S3), res(D1, 0, S5), 0);  // TT, S^2, X^4
+  mul_pass(4, ops(D0, S3, S4, S3, D1, S3, S4, S6));  // S^3, TT S, X^4 S, TT(T+S)
+  out_pass(3, res(D0, W0), res(D1, W1), res(S5, W2 | W3), 0);  // Z3, X3, Y3
 }
 
-// P = P + Q, masked-complete (same cases as xsk233_bs.add):
+// P = P + Q, masked-complete (same cases as xsk233_bs.add), in six levels:
 // W = Z1 Z2, U = Y1 Z2 + Y2 Z1, V = X1 Z2 + X2 Z1, N = U^2 W + U V W + V^3,
 // X3 = N V, Z3 = V^3 W, Y3 = U (X1 V^2 Z2 + N) + V N + Y1 V^3 Z2.
 __device__ __forceinline__ void point_add() {
-  gf_mul(S0, Z1, Z2);  // W
-  gf_mul(S1, Y1, Z2);
-  gf_mul(S2, Y2, Z1);
-  gf_mul(S3, X1, Z2);
-  gf_mul(S4, X2, Z1);
-  for (int j = threadIdx.x; j < M; j += THREADS) {
-    el(S1)[j] ^= el(S2)[j];  // U
-    el(S3)[j] ^= el(S4)[j];  // V
-  }
-  __syncthreads();
-  mark(PH_XOR);
-  uint32_t zm[4];  // inf_p, inf_q, v_zero, u_zero
-  zero_masks(Z1, Z2, S3, S1, zm);
-  gf_sqr(S4, S3);      // V^2
-  gf_sqr(S2, S1);      // U^2
-  gf_mul(S5, S4, S3);  // V^3
-  gf_mul(S6, S1, S0);  // UW
-  gf_mul(S2, S2, S0);  // U^2 W
-  gf_mul(S6, S6, S3);  // UWV
-  gf_mul(S4, S4, Z2);  // V^2 Z2
-  for (int j = threadIdx.x; j < M; j += THREADS) el(S2)[j] ^= el(S6)[j] ^ el(S5)[j];  // N
-  __syncthreads();
-  mark(PH_XOR);
-  gf_mul(S0, S5, S0);  // Z3 = V^3 W
-  gf_mul(S5, S5, Z2);  // V^3 Z2
-  gf_mul(S6, S2, S3);  // X3 = N V
-  gf_mul(S4, X1, S4);  // X1 V^2 Z2
-  gf_mul(S5, Y1, S5);  // Y1 V^3 Z2
-  for (int j = threadIdx.x; j < M; j += THREADS) el(S4)[j] ^= el(S2)[j];  // X1 V^2 Z2 + N
-  __syncthreads();
-  mark(PH_XOR);
-  gf_mul(S4, S1, S4);  // U (X1 V^2 Z2 + N)
-  gf_mul(S3, S3, S2);  // V N
-  for (int j = threadIdx.x; j < M; j += THREADS) el(S4)[j] ^= el(S3)[j] ^ el(S5)[j];  // Y3
-  __syncthreads();
-  mark(PH_XOR);
+  mul_pass(4, ops(Z1, Z2, Y1, Z2, Y2, Z1, X1, Z2));
+  out_pass(3, res(S0, W0), res(S1, W1 | W2), res(S2, W3), 0);  // W, U, X1 Z2
+  mul_pass(2, ops(X2, Z1, S1, S0));                            // X2 Z1, UW
+  out_pass(3, res(S3, W0, NO, S2), res(S5, W1), res(S4, 0, S1), 0);  // V, UW, U^2
+  zero_partials(Z1, Z2, S3, S1);  // inf_p, inf_q, v_zero, u_zero
+  mul_pass(2, ops(S4, S0, S5, S3));                            // U^2 W, UWV
+  out_pass(2, res(S6, W0 | W1), res(S2, 0, S3), 0, 0);         // U^2 W + UWV, V^2
+  mul_pass(2, ops(S2, S3, S2, Z2));                            // V^3, V^2 Z2
+  out_pass(3, res(S4, W0), res(S6, W0, NO, S6), res(S5, W1), 0);  // V^3, N, V^2 Z2
+  mul_pass(4, ops(S4, S0, S4, Z2, S6, S3, X1, S5));  // Z3, V^3 Z2, X3 = N V, X1 V^2 Z2
+  out_pass(4, res(S0, W0), res(S4, W1), res(S2, W2), res(S5, W3, NO, S6));  // .., X1 V^2 Z2 + N
+  mul_pass(3, ops(Y1, S4, S1, S5, S3, S6));          // Y1 V^3 Z2, U (X1 V^2 Z2 + N), V N
+  out_pass(1, res(S1, W0 | W1 | W2), 0, 0, 0);       // Y3
 
+  uint32_t zm[4];
+  zero_masks(zm);
   const uint32_t inf_p = zm[0], inf_q = zm[1], v_zero = zm[2], u_zero = zm[3];
   // The doubling survives the selects below only in lanes where P = Q
   // and neither is infinity, so it runs only when some lane of the
   // column is such a lane.  The masks are the same in every thread, so
-  // the branch is block-uniform.  Where it is skipped, the D slots hold
-  // stale values, and m_dbl picks them only in lanes that the inf_q /
-  // inf_p selects then overwrite.  Honest scalars reach P = Q in a lane
-  // only if tau^4 * prefix == digit (mod n), with probability about
-  // 2^-228 per window, so the branch tells nothing about secret scalars.
+  // the branch is block-uniform.  Where it is skipped, its result slots
+  // hold stale values, and m_dbl picks them only in lanes that the
+  // inf_q / inf_p selects then overwrite.  Honest scalars reach P = Q in
+  // a lane only if tau^4 * prefix == digit (mod n), with probability
+  // about 2^-228 per window, so the branch tells nothing about secret
+  // scalars.
   const bool need_double = (v_zero & u_zero & ~inf_p & ~inf_q) != 0u;
   count_double(need_double, need_double);
   if (need_double) {
     phase_override(PH_DOUBLE);
-    point_double();  // (D5, D2, D3)
+    point_double();  // (D1, S5, D0)
     phase_override(N_PHASES);
   }
 
   const uint32_t m_inf = v_zero & ~u_zero;  // P = -Q
   const uint32_t m_dbl = v_zero & u_zero;   // P = Q
-  const int gen[3] = {S6, S4, S0};
-  const int dbl[3] = {D5, D2, D3};
+  const int gen[3] = {S2, S1, S0};
+  const int dbl[3] = {D1, S5, D0};
   for (int idx = threadIdx.x; idx < 3 * M; idx += THREADS) {
     const int c = idx / M, j = idx % M;
     const uint32_t inf = (idx == M) ? 0xffffffffu : 0u;  // (0 : 1 : 0)
@@ -365,13 +407,14 @@ ladder_kernel(const uint32_t* __restrict__ oh, const uint32_t* __restrict__ ng,
       wmask[threadIdx.x] = oh[((size_t)wi * TABLE_SIZE + threadIdx.x) * cols + col];
     else if (threadIdx.x == TABLE_SIZE)
       wmask[TABLE_SIZE] = ng[(size_t)wi * cols + col];
+    // tau^4: four squarings of X, Y, Z, alternating between P's slots
+    // and S0..S2 (the first barrier also publishes wmask)
     phase_override(PH_FROB);
-    for (int c = 0; c < 3; ++c)
-      for (int r = 0; r < 4; ++r) gf_sqr(X1 + c, X1 + c);  // tau^4
-    phase_override(N_PHASES);
-    // (gf_sqr's barriers also publish wmask)
+    out_pass(3, res(S0, 0, X1), res(S1, 0, Y1), res(S2, 0, Z1), 0);
+    out_pass(3, res(X1, 0, S0), res(Y1, 0, S1), res(Z1, 0, S2), 0);
+    out_pass(3, res(S0, 0, X1), res(S1, 0, Y1), res(S2, 0, Z1), 0);
     const uint32_t negm = wmask[TABLE_SIZE];
-    for (int j = threadIdx.x; j < M; j += THREADS) {
+    for (int j = threadIdx.x; j < M; j += THREADS) {  // the pick, beside the last squaring
       uint32_t v[3] = {0u, 0u, 0u};
       for (int e = 0; e < TABLE_SIZE; ++e) {
         const uint32_t m = wmask[e];
@@ -382,8 +425,8 @@ ladder_kernel(const uint32_t* __restrict__ oh, const uint32_t* __restrict__ ng,
       el(Y2)[j] = v[1] ^ (v[0] & negm);  // cneg
       el(Z2)[j] = v[2];
     }
-    __syncthreads();
-    mark(PH_PICK);
+    out_pass(3, res(X1, 0, S0), res(Y1, 0, S1), res(Z1, 0, S2), 0);
+    phase_override(N_PHASES);
     point_add();
   }
 #ifdef BS_PHASE_CLOCKS

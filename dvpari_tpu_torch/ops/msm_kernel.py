@@ -229,19 +229,17 @@ def doubling_operands(table: torch.Tensor, slots, seed: int, a: int = 1, b: int 
     each of `slots` (point indices 32 * column + bit): `table` with entry
     b replaced by tau^4(entry a), and digit masks that pick entry a at
     window 61 and entry b at window 60, both unnegated, in those slots,
-    and random digits and signs (from `seed`) everywhere else, save that
-    pair of digits with equal signs, which doubles as well.  There the
+    and elsewhere random digits other than b, with random signs (from
+    `seed`): no other lane picks tau^4(entry a), which a lane whose
+    accumulator is +-entry a would double with.  In the chosen slots the
     accumulator after window 61 is entry a, so tau^4 of it equals the
     picked entry b.  Entry a must be finite in those slots.  Returns
     (oh, ng, table) on the table's device."""
     cols = table.shape[-1]
     rng = np.random.default_rng(seed)
-    idx = rng.integers(0, TABLE_SIZE, (N_WINDOWS, 32 * cols))
+    idx = rng.integers(0, TABLE_SIZE - 1, (N_WINDOWS, 32 * cols))
+    idx[idx >= b] += 1
     sgn = np.where(rng.integers(0, 2, (N_WINDOWS, 32 * cols)) == 1, -1, 1)
-    # elsewhere, never a then b with equal signs: that too doubles
-    clash = ((idx[N_WINDOWS - 1] == a) & (idx[N_WINDOWS - 2] == b)
-             & (sgn[N_WINDOWS - 1] == sgn[N_WINDOWS - 2]))
-    idx[N_WINDOWS - 2, clash] = (b + 1) % TABLE_SIZE
     for s in slots:
         idx[N_WINDOWS - 1, s], idx[N_WINDOWS - 2, s] = a, b
         sgn[N_WINDOWS - 1, s] = sgn[N_WINDOWS - 2, s] = 1
