@@ -28,23 +28,20 @@
 // (15 field elements in 256-word slots, zero past word 233, and four
 // 465-word products).  The field operations of the add fall into levels
 // of independent ones, and each level costs one barrier pair: mul_pass
-// computes up to four products, thread t the rows t and 233 + t of each
-// (together exactly 233 AND/XOR terms), then out_pass reduces them,
-// squares, and XORs the level's results into their slots.  A squaring
-// is a linear map: each result word is the XOR of at most three operand
-// words, read directly.  The rows' b-operand reads are one
-// conflict-free load per term; the a-operand index is the same in every
-// lane of a warp (except over the warp's own 32-row span, where each
+// computes up to four products at once, spreading their 4 x 233 row
+// pairs (rows t and 233 + t of a product, exactly 233 AND/XOR terms)
+// over all 256 threads, then out_pass reduces them, squares, and XORs
+// the level's results into their slots.  A squaring is a linear map:
+// each result word is the XOR of at most three operand words, read
+// directly.  The rows' b-operand reads are one conflict-free load per
+// term, except in a warp whose rows cross into the next product; the
+// a-operand index is the same in every lane of a warp (except where a
 // lane switches from row t to row 233 + t), so a comes in one broadcast
-// 16-byte load per 4 terms.  Those loads bound the multiply: measured on
-// an H100, its rows run at ~84 % of one shared-memory wavefront per SM
-// clock.  Warp 7 has 9 busy lanes; spreading the rows of several
-// products over all lanes puts two products' rows with equal t mod 32
-// into one warp, whose loads then conflict, so it saves no wavefront.
-// The multiply is one out-of-line function with rolled loops, which
-// keeps the code small: inlined and fully unrolled at every call site it
-// tripled the kernel's instructions and ran 1.7x slower on an H100.
-// Four blocks fit on an SM.
+// 16-byte load per 4 terms.  Measured on an H100 the products take ~86 %
+// of a window, the barriers and reductions little.  The multiply is one
+// out-of-line function with rolled loops, which keeps the code small:
+// inlined and fully unrolled at every call site it tripled the kernel's
+// instructions and ran 1.7x slower on an H100.  Four blocks fit on an SM.
 
 #include <cstddef>
 #include <cstdint>
@@ -54,14 +51,14 @@
 namespace {
 
 constexpr int M = 233;
-constexpr int WIDE = 2 * M - 1;  // 465
 constexpr int K = 74;            // x^233 = x^74 + 1
 constexpr int N_WINDOWS = 62;
 constexpr int TABLE_SIZE = 11;
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr int SLOT = 256;  // words per field element; [233, 256) stay zero
-constexpr int LEAD = 4;    // zero words before slot 0 (a multiply may read b[-3..-1])
+constexpr int LEAD = 4;    // zero words before slot 0 (a multiply may read b[-2..-1])
+constexpr int A_END = 236;  // a multiply reads a[0, 236): a is zero from 233
 constexpr unsigned FULL = 0xffffffffu;
 
 // Field-element slots in shared memory: P = (X1, Y1, Z1) is the
@@ -75,7 +72,7 @@ enum Slot {
 };
 
 constexpr int NPROD = 4;                        // products per mul_pass
-constexpr int WIDE_WORDS = 468;                 // WIDE rounded up to 16 bytes
+constexpr int WIDE_WORDS = 468;                 // 2 * M - 1 rounded up to 16 bytes
 constexpr int F0 = LEAD;                        // slot 0
 constexpr int WIDE_OFF = F0 + NSLOT * SLOT;     // NPROD 465-word products
 constexpr int RED_OFF = WIDE_OFF + NPROD * WIDE_WORDS;  // 4 x NWARPS zero-test words
@@ -84,9 +81,9 @@ constexpr int WORK_WORDS = RED_OFF + 4 * NWARPS;
 // Phase clocks (built with -DBS_PHASE_CLOCKS only): thread 0 of every
 // block adds the clock64() cycles between block barriers to the phase it
 // is in, and counts the doublings that ran and those that a lane needed.
-// tau^4 and the table pick share their last barrier, so "frob" holds
-// both; "reduce" is out_pass (reductions, squarings, XORs).
-enum Phase { PH_FROB, PH_PICK, PH_MUL, PH_REDUCE, PH_XOR, PH_DOUBLE, PH_SELECT, N_PHASES };
+// "frob" is tau^4 and the table pick (they share their last barrier),
+// "mul" mul_pass, "reduce" out_pass (reductions, squarings, XORs).
+enum Phase { PH_FROB, PH_MUL, PH_REDUCE, PH_DOUBLE, PH_SELECT, N_PHASES };
 #ifdef BS_PHASE_CLOCKS
 constexpr int PROF_WORDS = 2 * (N_PHASES + 2);  // sums, last stamp, phase override
 #else
@@ -203,44 +200,66 @@ __device__ __forceinline__ uint32_t squared(int s, int j) {
   return v;
 }
 
+// Terms i .. i + 3 of row pair t, where some lanes of the warp switch
+// from row t (i <= t) to row 233 + t.
+__device__ __forceinline__ void span4(const uint32_t* pa, const uint32_t* blo,
+                                      const uint32_t* bhi, int i, int t,
+                                      uint32_t& lo, uint32_t& hi) {
+  const uint4 v = *reinterpret_cast<const uint4*>(pa + i);
+  const uint32_t av[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int ii = i + q;
+    if (ii <= t) lo ^= av[q] & blo[-ii];
+    else hi ^= av[q] & bhi[-ii];
+  }
+}
+
 // Products k < n (n <= NPROD) into the wide buffers: product k = slot
 // a_k * slot b_k (see ops()).  Row t = XOR_{i<=t} a[i] b[t-i], row
-// 233+t = XOR_{i>t} a[i] b[t+233-i]; i runs to 236, and a is zero from
-// 233 (slot padding).  Thread t < 233 computes rows t and 233 + t of
-// every product; slots may be operands of several products.
+// 233+t = XOR_{i>t} a[i] b[t+233-i].  The n * 233 row pairs u = 233 k + t
+// go to the threads in warp-sized runs; a run may cross from product k
+// (rows t0..232) into k + 1 (rows 0..t31).  Per run, i falls into
+// [0, e1) and [e2, e3), where lanes differ in which row a term feeds,
+// [e1, e2), where each lane feeds one row (its b pointer picks which),
+// and [e3, 236), row 233 + t everywhere.  Slots may be operands of
+// several products; the results land in the wide buffers only.
 __device__ __noinline__ void mul_pass(int n, uint64_t prods) {
-  const int t = threadIdx.x;
-  if (t < M) {
-    const int w0 = t & ~31;  // first row of this warp
+  const int lane = threadIdx.x & 31;
+  const int total = n * M;
+  for (int base = threadIdx.x & ~31; base < total; base += THREADS) {
+    const int u = min(base + lane, total - 1);  // lanes past the end redo one, unstored
+    const int k = u / M, t = u - k * M;
+    const uint32_t ab = (uint32_t)(prods >> (10 * k));
+    const uint32_t* pa = el(ab & 31);
+    const uint32_t* blo = el((ab >> 5) & 31) + t;  // blo[-i] = b[t - i]
+    const uint32_t* bhi = blo + M;                 // bhi[-i] = b[t + 233 - i]
+    const int t0 = __shfl_sync(FULL, t, 0), t31 = __shfl_sync(FULL, t, 31);
+    const bool cross = t31 < t0;
+    const int e1 = cross ? (t31 & ~3) + 4 : 0;
+    const int e2 = t0 & ~3;
+    const int e3 = cross ? A_END : min(e2 + 36, A_END);
+    const bool low = t >= e2;  // in [e1, e2): row t (else row 233 + t)
+    const uint32_t* bmid = low ? blo : bhi;
+    uint32_t lo = 0u, hi = 0u, mid = 0u;
+    int i = 0;
 #pragma unroll 1
-    for (int k = 0; k < n; ++k) {
-      const uint32_t ab = (uint32_t)(prods >> (10 * k));
-      const uint32_t* pa = el(ab & 31);
-      const uint32_t* blo = el((ab >> 5) & 31) + t;  // blo[-i] = b[t - i]
-      const uint32_t* bhi = blo + M;                 // bhi[-i] = b[t + 233 - i]
-      uint32_t lo = 0u, hi = 0u;
-      int i = 0;
+    for (; i < e1; i += 4) span4(pa, blo, bhi, i, t, lo, hi);
 #pragma unroll 1
-      for (; i < w0; i += 4) {  // i < w0 <= t: row t only
-        const uint4 v = *reinterpret_cast<const uint4*>(pa + i);
-        lo ^= (v.x & blo[-i]) ^ (v.y & blo[-i - 1]) ^ (v.z & blo[-i - 2]) ^ (v.w & blo[-i - 3]);
-      }
+    for (; i < e2; i += 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(pa + i);
+      mid ^= (v.x & bmid[-i]) ^ (v.y & bmid[-i - 1]) ^ (v.z & bmid[-i - 2]) ^ (v.w & bmid[-i - 3]);
+    }
 #pragma unroll 1
-      for (; i < w0 + 32; i += 4) {  // the warp's span: row t up to i = t
-        const uint4 v = *reinterpret_cast<const uint4*>(pa + i);
-        const uint32_t av[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int ii = i + q;
-          if (ii <= t) lo ^= av[q] & blo[-ii];
-          else hi ^= av[q] & bhi[-ii];
-        }
-      }
+    for (; i < e3; i += 4) span4(pa, blo, bhi, i, t, lo, hi);
 #pragma unroll 1
-      for (; i < 236; i += 4) {  // i > t: row 233 + t only
-        const uint4 v = *reinterpret_cast<const uint4*>(pa + i);
-        hi ^= (v.x & bhi[-i]) ^ (v.y & bhi[-i - 1]) ^ (v.z & bhi[-i - 2]) ^ (v.w & bhi[-i - 3]);
-      }
+    for (; i < A_END; i += 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(pa + i);
+      hi ^= (v.x & bhi[-i]) ^ (v.y & bhi[-i - 1]) ^ (v.z & bhi[-i - 2]) ^ (v.w & bhi[-i - 3]);
+    }
+    if (low) lo ^= mid;
+    else hi ^= mid;
+    if (base + lane < total) {
       uint32_t* w = smem + WIDE_OFF + k * WIDE_WORDS;
       w[t] = lo;
       if (t < M - 1) w[M + t] = hi;
@@ -476,7 +495,7 @@ int bs_occupancy(int what) {
 }
 
 #ifdef BS_PHASE_CLOCKS
-const char* bs_phase_names() { return "frob,pick,mul,reduce,xor,double,select"; }
+const char* bs_phase_names() { return "frob,mul,reduce,double,select"; }
 
 // Zero the phase clocks and the doubling counts.
 int bs_phase_reset() {

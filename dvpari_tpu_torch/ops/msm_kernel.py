@@ -288,10 +288,10 @@ def profile_ladder(oh, ng, table, source: str = SOURCE):
     return _profiled(lib, lambda: launch_ladder(lib, oh, ng, table))
 
 
-def profile_point_add(p, q, source: str = SOURCE):
+def profile_point_add(p, q):
     """The profiling build's point add -> (out, stats); the doubling
     counts are per column."""
-    lib = library(source, PROFILE_DEFINES)
+    lib = library(SOURCE, PROFILE_DEFINES)
     return _profiled(lib, lambda: launch_point_add(lib, p, q))
 
 

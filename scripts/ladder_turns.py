@@ -11,9 +11,11 @@ operands are made from a seed at the 2^18-point cells' width (8192
 columns): the MSM's (per-column window table), the fan-out's (G's shared
 table) and the crafted doubling operands (msm_kernel.doubling_operands).
 Every version's output must equal the plain ladder's on each, bit for
-bit.  Then each version's launch is timed with CUDA events in turns,
-v1 .. vn vn .. v1, for REPS rounds, and the median per version and
-operand set is printed with the card's name and power limit, beside the
+bit, and its point add the plain add's on the table build's operands.
+Then each version's ladder and point-add launches are timed with CUDA
+events in turns, v1 .. vn vn .. v1, for REPS rounds, and the median per
+version and operand set is printed with the card's name and power limit,
+beside the
 phase cycles per column-window and the doublings run of the clocked
 builds, the ptxas report and the resident blocks per SM.  The same JSON
 goes to chiprun_out/ladder_turns.json.
@@ -97,17 +99,26 @@ def main(argv) -> int:
                     "doubles_run": st["doubles_run"], "doubles_needed": st["doubles_needed"],
                 }
         del want
-    print("every version equals the plain ladder on every operand set", flush=True)
+    p_add, q_add = table[5], table[6]  # one 8192-column add of the table build
+    want = bs.add(p_add, q_add)
+    for k in versions:
+        if not torch.equal(msm_kernel.launch_point_add(libs[(k, ())], p_add, q_add), want):
+            raise AssertionError(f"version {k}'s point add != plain add")
+    del want
+    print("every version equals the plain ladder and add on every operand set", flush=True)
 
     order = list(versions) + list(reversed(versions))
-    samples = {(k, n): [] for k in versions for n in operands}
+    launches = {name: (lambda lib, ops=ops: msm_kernel.launch_ladder(lib, *ops))
+                for name, ops in operands.items()}
+    launches["point_add"] = lambda lib: msm_kernel.launch_point_add(lib, p_add, q_add)
+    samples = {(k, n): [] for k in versions for n in launches}
     for _ in range(REPS):
-        for name, ops in operands.items():
+        for name, launch in launches.items():
             for k in order:
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 a.record()
-                msm_kernel.launch_ladder(libs[(k, ())], *ops)
+                launch(libs[(k, ())])
                 b.record()
                 b.synchronize()
                 samples[(k, name)].append(a.elapsed_time(b))
@@ -117,8 +128,10 @@ def main(argv) -> int:
     ).stdout.strip().splitlines()[0])
     for name, ops in operands.items():
         tcols = ops[2].shape[-1]
-        bound_s, by = roofline.bound(roofline.ladder_cost(C, tcols, doubles_in[name]), clock_mhz)
+        bound_s = roofline.bound(roofline.ladder_cost(C, tcols, doubles_in[name]), clock_mhz)[0]
         report.setdefault("bound_ms", {})[name] = 1e3 * bound_s
+    report["bound_ms"]["point_add"] = 1e3 * roofline.bound(roofline.point_add_cost(C), clock_mhz)[0]
+    for name in launches:
         for k in versions:
             report["versions"][k].setdefault("ms", {})[name] = float(np.median(samples[(k, name)]))
             report["versions"][k].setdefault("samples_ms", {})[name] = samples[(k, name)]
@@ -130,7 +143,7 @@ def main(argv) -> int:
         f.write(line + "\n")
     for k in versions:
         rec = report["versions"][k]
-        print(f"{k}: " + ", ".join(f"{n} {rec['ms'][n]:.3f} ms" for n in operands)
+        print(f"{k}: " + ", ".join(f"{n} {rec['ms'][n]:.3f} ms" for n in launches)
               + f" (bound {report['bound_ms']['msm']:.3f} ms) [{card}]", flush=True)
     print(line, flush=True)
     return 0
