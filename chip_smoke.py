@@ -141,8 +141,9 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "smem" in line:
                     log(f"  ptxas ({what}): {line.strip()}")
         occ = msm_kernel.occupancy()
-        log(f"resident blocks per SM: {json.dumps(occ)} (256 threads each)")
-        if occ["ladder"] < 1 or occ["point_add"] < 1:
+        log(f"resident blocks per SM and dynamic shared memory per block: "
+            f"{json.dumps(occ)} (256 threads each)")
+        if occ["ladder"]["blocks_per_sm"] < 1 or occ["point_add"]["blocks_per_sm"] < 1:
             raise AssertionError(f"a kernel cannot be resident: {occ}")
 
         def doubles_of(stats, want, what):

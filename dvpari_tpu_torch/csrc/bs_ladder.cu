@@ -494,6 +494,10 @@ int bs_occupancy(int what) {
   return e == cudaSuccess ? n : -(int)e;
 }
 
+// Dynamic shared memory of a ladder_kernel (what = 0) or point_add_kernel
+// (what = 1) block, in bytes.
+int bs_shared_bytes(int what) { return (int)(what == 0 ? LADDER_SMEM : ADD_SMEM); }
+
 #ifdef BS_PHASE_CLOCKS
 const char* bs_phase_names() { return "frob,mul,reduce,double,select"; }
 

@@ -86,10 +86,11 @@ def build(source: str = SOURCE, defines=()) -> str:
 
 
 def library(source: str = SOURCE, defines=()) -> ctypes.CDLL:
-    """The built library of `source` with `defines`, loaded once."""
-    so = build(source, defines)
-    if so not in _libs:
-        lib = ctypes.CDLL(so)
+    """The built library of `source` with `defines`, loaded once per
+    process (a later edit of the source needs a new process)."""
+    key = (source, tuple(defines))
+    if key not in _libs:
+        lib = ctypes.CDLL(build(source, defines))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.bs_ladder.argtypes = [vp, vp, vp, ci, vp, ci, vp]
         lib.bs_ladder.restype = ci
@@ -100,13 +101,16 @@ def library(source: str = SOURCE, defines=()) -> ctypes.CDLL:
         if hasattr(lib, "bs_occupancy"):
             lib.bs_occupancy.argtypes = [ci]
             lib.bs_occupancy.restype = ci
+        if hasattr(lib, "bs_shared_bytes"):
+            lib.bs_shared_bytes.argtypes = [ci]
+            lib.bs_shared_bytes.restype = ci
         if hasattr(lib, "bs_phase_read"):
             lib.bs_phase_names.restype = ctypes.c_char_p
             lib.bs_phase_reset.restype = ci
             lib.bs_phase_read.argtypes = [vp]
             lib.bs_phase_read.restype = ci
-        _libs[so] = lib
-    return _libs[so]
+        _libs[key] = lib
+    return _libs[key]
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -255,13 +259,18 @@ def doubling_operands(table: torch.Tensor, slots, seed: int, a: int = 1, b: int 
 # The profiling build: phase clocks, doubling counts, occupancy
 # ---------------------------------------------------------------------------
 
-def occupancy(lib=None) -> "dict[str, int]":
-    """Resident blocks per SM of each kernel at its launch's shared memory."""
+def occupancy(lib=None) -> "dict[str, dict]":
+    """Each kernel's resident blocks per SM at its launch's dynamic
+    shared memory, and those bytes (where the library reports them)."""
     lib = lib or library()
-    out = {"ladder": lib.bs_occupancy(0), "point_add": lib.bs_occupancy(1)}
-    for name, n in out.items():
+    out = {}
+    for what, name in enumerate(("ladder", "point_add")):
+        n = lib.bs_occupancy(what)
         if n < 0:
             _raise_on(lib, -n, f"occupancy of {name}")
+        out[name] = {"blocks_per_sm": n}
+        if hasattr(lib, "bs_shared_bytes"):
+            out[name]["shared_bytes"] = lib.bs_shared_bytes(what)
     return out
 
 
