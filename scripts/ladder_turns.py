@@ -13,12 +13,11 @@ table) and the crafted doubling operands (msm_kernel.doubling_operands).
 Every version's output must equal the plain ladder's on each, bit for
 bit, and its point add the plain add's on the table build's operands.
 Then each version's ladder and point-add launches are timed with CUDA
-events in turns, v1 .. vn vn .. v1, for REPS rounds, and the median per
-version and operand set is printed with the card's name and power limit,
-beside the
-phase cycles per column-window and the doublings run of the clocked
-builds, the ptxas report and the resident blocks per SM.  The same JSON
-goes to chiprun_out/ladder_turns.json.
+events in turns, v1 .. vn vn .. v1, for REPS rounds.  The last line is
+one JSON object: the median per version and operand set, the card's
+name and power limit, the phase cycles per column-window and doublings
+run of the clocked builds, the ptxas report and the resident blocks per
+SM.
 """
 
 import json
@@ -138,9 +137,6 @@ def main(argv) -> int:
     report["max_sm_clock_mhz"] = clock_mhz
     report["order"] = order
     line = json.dumps(report)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "ladder_turns.json"), "w") as f:
-        f.write(line + "\n")
     for k in versions:
         rec = report["versions"][k]
         print(f"{k}: " + ", ".join(f"{n} {rec['ms'][n]:.3f} ms" for n in launches)
