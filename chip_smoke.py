@@ -17,6 +17,15 @@ counts the doublings that ran.  Prints timings beside the card's name
 and power limit, one JSON line of per-kernel numbers, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises: no phase is
 caught.  Exits non-zero, printing no result, when CUDA is unavailable.
+
+The protocol runs end to end on the card too (scripts/e2e_card.py): the
+toy circuit's setup -> prove must give the pinned proof TOY_PROOF_HEX
+(tests/golden_n16.py) and verify must accept it and reject a flipped
+bit; then an m = 2^16 circuit (synth_multiterm) runs setup, precompute,
+a cold and a warm prove, each proof verified and a tampered one
+rejected, with per-phase times and the kernel launches per setup and
+per prove.  The kernels line's launches sum the counted main paths: the
+2^18 fan-out and MSMs, the 2^16 setup and both proves.
 """
 
 import json
@@ -32,6 +41,7 @@ N_FANOUT = 1 << 18  # g_k of an m = 2^16 prove
 N_RAGGED = (1 << 16) + 5  # a wire-count-shaped g_m
 N_SMALL = 100  # compare phase: 4 columns of points, 1 zero column added
 N_SPOT = 64  # fan-out slots checked against host.smul
+E2E_LOG_M = 16  # the protocol rung: m = 2^16 constraints
 REPS = 3
 SEED = 7
 ORACLE_WORKERS = 6
@@ -364,6 +374,24 @@ def main() -> int:
             kernel_fn, plain_fn = rec.pop("fns")
             rec["small_ms"] = 1e3 * median_s(kernel_fn)
             rec["plain_ms"] = 1e3 * median_s(plain_fn)
+
+    # -- phase 8: the protocol end to end (scripts/e2e_card.py) ------------------
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import e2e_card
+
+    e2e_card.toy(dev, log)
+    e2e = e2e_card.rung(E2E_LOG_M, dev, log)
+    e2e_card.report(e2e, tag, log)
+    # five fan-outs per setup; three MSMs per prove, each with a table
+    # build and folds through point_add
+    for path, want_ladder, min_adds in (("setup", 5, 0), ("cold_prove", 3, 3),
+                                        ("warm_prove", 3, 3)):
+        got = e2e[f"{path}_launches"]
+        if got["ladder"] != want_ladder or got["point_add"] < min_adds:
+            raise AssertionError(f"{path} at m = 2^{E2E_LOG_M} launched {got}, expected "
+                                 f"{want_ladder} ladders and at least {min_adds} point adds")
+        for name in launches:
+            launches[name] += got[name]
 
     # bounds count the doublings these operands ran (profiling build)
     costs = {"ladder": roofline.ladder_cost(C, C, prof["MSM 2^18"]["doubles_run"]),

@@ -3,7 +3,8 @@ planes and int32 Fr limbs <-> the port's int32 tensors, bit for bit.
 
 The SRS `.planes.npz` sidecar (key "P", uint32[3, 233, C]) holds planes
 of this kind, so a cache written by the JAX package loads here through
-planes_from_numpy(np.load(path)["P"]).
+planes_from_numpy(np.load(path)["P"]); a JAX FFTree's layers become
+the port's tree through fftree_from_numpy.
 """
 
 from __future__ import annotations
@@ -42,3 +43,14 @@ def limbs_to_numpy(limbs: torch.Tensor) -> np.ndarray:
     if limbs.dtype != torch.int32:
         raise TypeError(f"Fr limbs must be int32, got {limbs.dtype}")
     return limbs.detach().cpu().numpy()
+
+
+def fftree_from_numpy(layers, x0s, shift_by_one: bool, base_log_n: int, device="cuda"):
+    """The JAX package's FFTree state -- layers as numpy int32[20, n_l],
+    isogeny x0s as python ints -> the port's FFTree on `device`."""
+    from dvpari_tpu_torch.fftree.tree import FFTree
+
+    for layer in layers:
+        if np.asarray(layer).dtype != np.int32:
+            raise TypeError(f"tree layers must be int32 limbs, got {np.asarray(layer).dtype}")
+    return FFTree([np.asarray(l) for l in layers], x0s, shift_by_one, base_log_n, device)

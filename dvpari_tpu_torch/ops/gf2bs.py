@@ -152,6 +152,29 @@ def square(a: torch.Tensor) -> torch.Tensor:
     return _reduce_wide(w)
 
 
+def pow2k(a: torch.Tensor, k: int) -> torch.Tensor:
+    for _ in range(k):
+        a = square(a)
+    return a
+
+
+def inv(a: torch.Tensor) -> torch.Tensor:
+    """a^(2^233 - 2) via Itoh-Tsujii (gf2_host.inv_int's chain: 10
+    multiplies, 232 squarings); inv(0) = 0."""
+    x1 = a
+    x2 = mul(pow2k(x1, 1), x1)
+    x3 = mul(pow2k(x2, 1), x1)
+    x6 = mul(pow2k(x3, 3), x3)
+    x7 = mul(pow2k(x6, 1), x1)
+    x14 = mul(pow2k(x7, 7), x7)
+    x28 = mul(pow2k(x14, 14), x14)
+    x29 = mul(pow2k(x28, 1), x1)
+    x58 = mul(pow2k(x29, 29), x29)
+    x116 = mul(pow2k(x58, 58), x58)
+    x232 = mul(pow2k(x116, 116), x116)
+    return square(x232)
+
+
 # ---------------------------------------------------------------------------
 # Per-element predicates (masks): int32[*cols], bit j = predicate of
 # element 32*c + j.

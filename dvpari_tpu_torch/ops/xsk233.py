@@ -1,5 +1,7 @@
 """sect233k1 MSM and fixed-base fan-out on Fr limb scalars: the
-production entry points, bit-sliced path only.
+production entry points, bit-sliced path only; and the bit-plane helpers
+the artifact cache and the prover use (compressed records from planes,
+plane vectors joined slot by slot).
 
 Counterpart of dvpari_tpu/ops/xsk233.py (`msm_limbs` via
 _msm_limbs_bitsliced + _msm_device_recoded, `mulgen_limbs_host` via
@@ -19,6 +21,7 @@ import torch
 
 from dvpari_tpu_torch.device import resolve
 from dvpari_tpu_torch.ops import fr, msm_kernel
+from dvpari_tpu_torch.ops import gf2bs as F
 from dvpari_tpu_torch.ops import tnaf_device as tdev
 from dvpari_tpu_torch.ops import xsk233_bs as bs
 from dvpari_tpu_torch.utils import gf2_host as gh
@@ -68,6 +71,60 @@ def to_affine_int(p):
             zi = gh.inv_int(Z)
             out.append((gh.mul_int(X, zi), gh.mul_int(Y, zi)))
     return out[0] if squeeze else out
+
+
+# Columns per chunk of encode_planes: a plane multiply of C columns holds
+# ~4 * 233 * 466 * C bytes of partial products at once.
+ENCODE_COLS = 1024
+
+
+def encode_planes(planes: torch.Tensor, n: int) -> np.ndarray:
+    """The first n slots of bit-sliced points int32[3, 233, C] -> their
+    30-byte compressed records (n, 30) uint8, host.encode's layout:
+    x = X/Z in bits 0..232, lsb(y/x) = lsb(Y/X) in bit 233, infinity
+    (Z = 0, also zero padding planes) all-zero.  One inversion of XZ per
+    point (Itoh-Tsujii over the planes) on the planes' own device; only
+    x and the y-bit come back to the host."""
+    C = planes.shape[-1]
+    assert 0 <= n <= 32 * C, (n, C)
+    xs, bits = [], []
+    sh = torch.arange(32, dtype=torch.int32, device=planes.device)
+    for c0 in range(0, C, ENCODE_COLS):
+        X, Y, Z = planes[:, :, c0 : c0 + ENCODE_COLS]
+        i = F.inv(F.mul(X, Z))  # 1/(XZ); 0 at infinity
+        xs.append(F.mul(F.square(X), i))  # X/Z
+        lam0 = F.mul(F.mul(Y, Z), i)[0]  # bit 0 of Y/X
+        bits.append(((lam0[:, None] >> sh) & 1).reshape(-1))
+    words = F.unpack_words(torch.cat(xs, dim=-1))[:, :n]  # (8, n)
+    recs = np.ascontiguousarray(words.T).view(np.uint8)[:, :30].copy()
+    recs[:, 29] |= (torch.cat(bits)[:n].cpu().numpy().astype(np.uint8) << 1)
+    return recs
+
+
+def slot_bits(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """Planes int32[3, 233, C] -> the first n slots as 0/1 int32[3, 233, n]."""
+    sh = torch.arange(32, dtype=torch.int32, device=planes.device)
+    return ((planes[..., None] >> sh) & 1).reshape(*planes.shape[:-1], -1)[..., :n]
+
+
+def pack_slot_bits(bits: torch.Tensor) -> torch.Tensor:
+    """0/1 int32[3, 233, n] -> planes int32[3, 233, ceil(n/32)], padding
+    slots zero planes (infinity under the complete add)."""
+    n = bits.shape[-1]
+    bits = torch.nn.functional.pad(bits, (0, -n % 32)).reshape(*bits.shape[:-1], -1, 32)
+    out = torch.zeros(bits.shape[:-1], dtype=torch.int32, device=bits.device)
+    for b in range(32):
+        out |= bits[..., b] << b
+    return out
+
+
+def concat_planes(parts) -> torch.Tensor:
+    """[(planes, n), ...] -> planes of the concatenated point vectors.
+    Slot-aligned parts (every n but the last a multiple of 32) join as
+    columns; others are repacked slot by slot."""
+    if all(n % 32 == 0 for _, n in parts[:-1]):
+        return torch.cat([p[..., : -(-n // 32)] for p, n in parts], dim=-1)
+    return pack_slot_bits(torch.cat([slot_bits(p, n) for p, n in parts], dim=-1))
 
 
 def recode(scalars, device="cuda"):

@@ -60,3 +60,46 @@ def inv_int(a: int) -> int:
     x116 = mul_int(pow2k_int(x58, 58), x58)
     x232 = mul_int(pow2k_int(x116, 116), x116)
     return square_int(x232)
+
+
+def sqrt_int(a: int) -> int:
+    return pow2k_int(a, M - 1)
+
+
+def trace_int(a: int) -> int:
+    t = a
+    acc = a
+    for _ in range(M - 1):
+        t = square_int(t)
+        acc ^= t
+    # trace lands in GF(2)
+    assert acc in (0, 1)
+    return acc
+
+
+def halftrace_int(a: int) -> int:
+    """H(a) = sum a^(2^(2i)), i=0..(m-1)/2; solves z^2 + z = a when Tr(a)=0."""
+    t = a
+    acc = a
+    for _ in range((M - 1) // 2):
+        t = square_int(square_int(t))
+        acc ^= t
+    return acc
+
+
+def derive_trace_mask() -> int:
+    """Bit i set iff Tr(x^i) = 1, so Tr(a) = parity(popcount(a & mask))."""
+    mask = 0
+    for i in range(M):
+        if trace_int(1 << i):
+            mask |= 1 << i
+    return mask
+
+
+# derive_trace_mask() baked as a constant (deriving it costs ~1 s at
+# import); a test holds the two equal.
+TRACE_MASK = (1 << 159) | 1
+
+
+def trace_fast_int(a: int) -> int:
+    return bin(a & TRACE_MASK).count("1") & 1

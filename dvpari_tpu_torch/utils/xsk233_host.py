@@ -3,7 +3,8 @@ the Koblitz curve y^2 + xy = x^3 + 1 over GF(2^233), cofactor 4,
 r = R = the Fr modulus.
 
 Counterpart of dvpari_tpu/utils/xsk233_host.py, without the native
-fast paths (smul_fast, decode_fast).
+fast paths (smul_fast, decode_fast): the verifier decodes two points and
+runs two scalar multiplications here, in python ints.
 """
 
 from __future__ import annotations
@@ -16,6 +17,15 @@ R = 3450873173395281893717377931138512760570940988862252126328087024741343
 # SEC2 sect233k1 base point (order r).
 GX = 0x17232BA853A7E731AF129F22FF4149563A419C26BF50A4C9D6EEFAD6126
 GY = 0x1DB537DECE819B7F70F555A67C427A8CD9BF18AEB9B56E0C11056FAE6A3
+
+
+def is_on_curve(p) -> bool:
+    if p is None:
+        return True
+    x, y = p
+    lhs = g.mul_int(y, y) ^ g.mul_int(x, y)
+    rhs = g.mul_int(g.mul_int(x, x), x) ^ 1
+    return lhs == rhs
 
 
 def neg(p):
@@ -69,3 +79,50 @@ def encode(p) -> bytes:
     lam_bit = g.mul_int(y, g.inv_int(x)) & 1
     v = x | (lam_bit << 233)
     return v.to_bytes(30, "little")
+
+
+def in_subgroup(p) -> bool:
+    """Order-r membership: x != 0, Tr(x) = 0, and the half is halvable.
+
+    For a = 0 the group is cyclic of order 4r; P is in 2E iff Tr(x) = 0,
+    and P in 4E (the prime subgroup) iff additionally one (equivalently,
+    either) half Q of P satisfies Tr(x_Q) = 0, which reduces to
+    Tr(y + (lam+1) x) = 0 with lam = halftrace(x) since
+    Tr(sqrt(u)) = Tr(u).
+    """
+    if p is None:
+        return True
+    x, y = p
+    if x == 0:
+        return False
+    if g.trace_fast_int(x) != 0:
+        return False
+    lam = g.halftrace_int(x)
+    return g.trace_fast_int(y ^ g.mul_int(lam ^ 1, x)) == 0
+
+
+def decode(data: bytes):
+    """Returns (point, is_valid): infinity is all-zero, and a record is
+    valid only if it decodes to a point of the prime-order subgroup."""
+    assert len(data) == 30
+    v = int.from_bytes(data, "little")
+    if v == 0:
+        return None, True
+    if v >> 234:
+        return None, False
+    x = v & ((1 << 233) - 1)
+    lam_bit = (v >> 233) & 1
+    if x == 0:
+        return None, False
+    # y/x = z solves z^2 + z = x + x^-2  (curve eq divided by x^2)
+    c = x ^ g.inv_int(g.mul_int(x, x))
+    if g.trace_fast_int(c) != 0:
+        return None, False
+    z = g.halftrace_int(c)
+    if z & 1 != lam_bit:
+        z ^= 1
+    y = g.mul_int(z, x)
+    p = (x, y)
+    if not is_on_curve(p) or not in_subgroup(p):
+        return None, False
+    return p, True

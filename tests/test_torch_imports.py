@@ -32,8 +32,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORT_MODULES = [
     "dvpari_tpu_torch",
+    "dvpari_tpu_torch.__main__",
     "dvpari_tpu_torch.convert",
     "dvpari_tpu_torch.device",
+    "dvpari_tpu_torch.fftree",
+    "dvpari_tpu_torch.fftree.aux_curve",
+    "dvpari_tpu_torch.fftree.precompute",
+    "dvpari_tpu_torch.fftree.tree",
+    "dvpari_tpu_torch.ops",
     "dvpari_tpu_torch.ops.fr",
     "dvpari_tpu_torch.ops.gf2bs",
     "dvpari_tpu_torch.ops.msm_kernel",
@@ -41,13 +47,34 @@ PORT_MODULES = [
     "dvpari_tpu_torch.ops.tnaf_device",
     "dvpari_tpu_torch.ops.xsk233",
     "dvpari_tpu_torch.ops.xsk233_bs",
+    "dvpari_tpu_torch.protocol",
+    "dvpari_tpu_torch.protocol.proof",
+    "dvpari_tpu_torch.protocol.prover",
+    "dvpari_tpu_torch.protocol.srs",
+    "dvpari_tpu_torch.protocol.transcript",
+    "dvpari_tpu_torch.r1cs",
+    "dvpari_tpu_torch.r1cs.gnark",
+    "dvpari_tpu_torch.r1cs.toy",
+    "dvpari_tpu_torch.storage",
+    "dvpari_tpu_torch.storage.artifacts",
+    "dvpari_tpu_torch.utils",
+    "dvpari_tpu_torch.utils.blake3",
     "dvpari_tpu_torch.utils.gf2_host",
+    "dvpari_tpu_torch.utils.kronecker",
     "dvpari_tpu_torch.utils.roofline",
+    "dvpari_tpu_torch.utils.timing",
     "dvpari_tpu_torch.utils.xsk233_host",
 ]
 
 
 def test_port_imports_no_jax():
+    found = sorted(
+        os.path.relpath(os.path.join(d, f), REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")
+        for d, _, files in os.walk(os.path.join(REPO, "dvpari_tpu_torch"))
+        for f in files
+        if f.endswith(".py")
+    )
+    assert found == sorted(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
@@ -205,6 +232,9 @@ def test_host_copy_matches_jax(part):
             assert gh.pow2k_int(a, 5) == jgh.pow2k_int(a, 5)
             assert gh.inv_int(a) == jgh.inv_int(a)
             assert gh.mul_int(a, gh.inv_int(a)) == 1
+            assert gh.halftrace_int(a) == jgh.halftrace_int(a)
+            assert gh.trace_fast_int(a) == gh.trace_int(a) == jgh.trace_int(a)
+        assert gh.TRACE_MASK == gh.derive_trace_mask() == jgh.TRACE_MASK
     else:
         assert (host.R, host.GX, host.GY) == (jhost.R, jhost.GX, jhost.GY)
         G = (host.GX, host.GY)
@@ -217,3 +247,12 @@ def test_host_copy_matches_jax(part):
         assert host.smul(host.R, G) is None
         for pt in (None, G, P, Q):
             assert host.encode(pt) == jhost.encode(pt)
+            assert host.decode(host.encode(pt)) == jhost.decode(jhost.encode(pt)) == (pt, True)
+            assert host.in_subgroup(pt) and host.is_on_curve(pt)
+        # an order-2 point, a curve point outside the subgroup, x = 0 with y-bit set
+        for bad in ((0, 1), host.add(P, (0, 1))):
+            assert host.is_on_curve(bad) == jhost.is_on_curve(bad)
+            assert host.in_subgroup(bad) == jhost.in_subgroup(bad) is False
+        for rec in (bytes(29) + b"\x02", (1 << 235).to_bytes(30, "little"), host.encode(Q)[:-1] + b"\x7f"):
+            assert host.decode(rec) == jhost.decode(rec)
+            assert host.decode(rec)[1] is False
