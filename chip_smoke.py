@@ -24,8 +24,13 @@ toy circuit's setup -> prove must give the pinned proof TOY_PROOF_HEX
 bit; then an m = 2^16 circuit (synth_multiterm) runs setup, precompute,
 a cold and a warm prove, each proof verified and a tampered one
 rejected, with per-phase times and the kernel launches per setup and
-per prove.  The kernels line's launches sum the counted main paths: the
-2^18 fan-out and MSMs, the 2^16 setup and both proves.
+per prove, which must be exactly what m and the wire count give (five
+ladders per setup; per prove three ladders and, per MSM, one table
+build, one add per column fold step and five in-word folds).  Every
+ladder and point-add launch of that setup and cold prove is then
+replayed on its own operands against its plain version, bit for bit.
+The kernels line's launches sum the counted main paths: the 2^18
+fan-out and MSMs, the 2^16 setup and both proves.
 """
 
 import json
@@ -60,6 +65,14 @@ def _smul_g(k: int):
     from dvpari_tpu_torch.utils import xsk233_host as host
 
     return host.smul(k, (host.GX, host.GY))
+
+
+def msm_point_adds(n: int) -> int:
+    """point_add launches of one MSM over n points (ops/msm_kernel.py:
+    msm_packed): the table build, one per column fold step (ceil(log2 C)
+    of C = ceil(n/32) columns) and the five in-word folds."""
+    C = -(-n // 32)
+    return 1 + (C - 1).bit_length() + 5
 
 
 def _nvidia_smi(query: str, units: bool = True) -> str:
@@ -298,10 +311,14 @@ def main() -> int:
     held("ladder", lambda: msm_kernel.ladder(oh_e, ng_e, gtab),
          lambda: bs.ladder(oh_e, ng_e, gtab), timed=False)
     oh, ng, _ = xsk233.recode(ks_limbs, dev)
-    step = 1024  # the plain table, built a slice of columns at a time
+
+    def plain_table(p, step=1024):
+        """The plain window table, built a slice of columns at a time."""
+        return torch.cat([bs.tnaf_table(p[..., i:i + step])
+                          for i in range(0, p.shape[-1], step)], dim=-1)
+
     table = held("point_add", lambda: bs.tnaf_table(planes, add=msm_kernel.point_add),
-                 lambda: torch.cat([bs.tnaf_table(planes[..., i:i + step])
-                                    for i in range(0, C, step)], dim=-1), timed=False)
+                 lambda: plain_table(planes), timed=False)
     lad = held("ladder", lambda: msm_kernel.ladder(oh, ng, table),
                lambda: bs.ladder(oh, ng, table), timed=False)
     half = C // 2
@@ -380,18 +397,61 @@ def main() -> int:
     import e2e_card
 
     e2e_card.toy(dev, log)
-    e2e = e2e_card.rung(E2E_LOG_M, dev, log)
+    rung_ops = []  # operands of the fan-outs and MSMs of the rung's setup and cold prove
+    e2e = e2e_card.rung(E2E_LOG_M, dev, log, record=rung_ops)
     e2e_card.report(e2e, tag, log)
-    # five fan-outs per setup; three MSMs per prove, each with a table
-    # build and folds through point_add
-    for path, want_ladder, min_adds in (("setup", 5, 0), ("cold_prove", 3, 3),
-                                        ("warm_prove", 3, 3)):
+    m, n_wires = e2e["m"], e2e["n_wires"]
+    want = {"setup": {"ladder": 5, "point_add": 0},
+            "prove": {"ladder": 3,
+                      "point_add": sum(msm_point_adds(n) for n in (n_wires, m, 4 * m))}}
+    for path in ("setup", "cold_prove", "warm_prove"):
         got = e2e[f"{path}_launches"]
-        if got["ladder"] != want_ladder or got["point_add"] < min_adds:
+        if got != want[path.split("_")[-1]]:
             raise AssertionError(f"{path} at m = 2^{E2E_LOG_M} launched {got}, expected "
-                                 f"{want_ladder} ladders and at least {min_adds} point adds")
+                                 f"{want[path.split('_')[-1]]}")
         for name in launches:
             launches[name] += got[name]
+    log(f"e2e launches equal the counts m = {m} and {n_wires} wires give: setup "
+        f"{json.dumps(want['setup'])}, prove {json.dumps(want['prove'])}")
+
+    # replay every kernel launch of that setup and cold prove on its own
+    # operands: each fan-out's ladder (shared table) and each MSM's table
+    # build, ladder (per-column table) and fold steps
+    sizes = [(kind, int(sc.shape[-1])) for kind, sc, _ in rung_ops]
+    want_sizes = ([("fan-out", n) for n in (n_wires, m, m, m, 2 * m)]
+                  + [("msm", n) for n in (n_wires, m, 4 * m)])
+    if sizes != want_sizes:
+        raise AssertionError(f"rung called fan-outs and MSMs of {sizes}, expected {want_sizes}")
+    replayed = {"ladder": 0, "point_add": 0}
+    t0 = time.perf_counter()
+
+    def checked_add(p, q):
+        replayed["point_add"] += 1
+        return held("point_add", lambda: msm_kernel.point_add(p, q), lambda: bs.add(p, q),
+                    timed=False)
+
+    for kind, scalars, pl in rung_ops:
+        oh_r, ng_r, _ = xsk233.recode(scalars, dev)
+        if kind == "fan-out":
+            tab_r = gtab
+        else:
+            pl = pl.contiguous()
+            replayed["point_add"] += 1
+            tab_r = held("point_add", lambda: bs.tnaf_table(pl, add=msm_kernel.point_add),
+                         lambda: plain_table(pl), timed=False)
+        replayed["ladder"] += 1
+        lad_r = held("ladder", lambda: msm_kernel.ladder(oh_r, ng_r, tab_r),
+                     lambda: bs.ladder(oh_r, ng_r, tab_r), timed=False)
+        if kind == "msm":
+            bs.fold_sum(lad_r, add=checked_add)
+    want_replay = {k: want["setup"][k] + want["prove"][k] for k in replayed}
+    if replayed != want_replay:
+        raise AssertionError(f"replayed {replayed} launches, the rung made {want_replay}")
+    del rung_ops, oh_r, ng_r, tab_r, lad_r
+    log(f"every kernel launch of the m = 2^{E2E_LOG_M} setup and cold prove equals its plain "
+        f"version on the same operands: {json.dumps(replayed)} (fan-out ladders at "
+        f"{[-(-n // 32) for k, n in sizes if k == 'fan-out']} columns, MSMs at "
+        f"{[-(-n // 32) for k, n in sizes if k == 'msm']}; {time.perf_counter() - t0:.1f} s)")
 
     # bounds count the doublings these operands ran (profiling build)
     costs = {"ladder": roofline.ladder_cost(C, C, prof["MSM 2^18"]["doubles_run"]),

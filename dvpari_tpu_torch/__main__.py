@@ -19,55 +19,58 @@ import sys
 import time
 
 
-def _cmd_e2e(args):
+def toy_e2e(cache_dir: str, seed: bytes, device="cuda", log=print):
+    """The toy circuit through setup -> precompute -> prove -> verify in
+    `cache_dir`, each step's time logged.  Returns (trapdoor, public
+    inputs, proof, verify's verdict)."""
     from dvpari_tpu_torch.protocol import prover as prover_mod
     from dvpari_tpu_torch.protocol import srs as srs_mod
     from dvpari_tpu_torch.r1cs.toy import toy_r1cs_dump, toy_witness
     from dvpari_tpu_torch.storage import artifacts as art
 
-    cache = args.cache_dir
-    os.makedirs(cache, exist_ok=True)
-    r1cs_path = os.path.join(cache, art.R1CS_CONSTRAINTS_FILE)
+    os.makedirs(cache_dir, exist_ok=True)
+    r1cs_path = os.path.join(cache_dir, art.R1CS_CONSTRAINTS_FILE)
     if not os.path.exists(r1cs_path):
         with open(r1cs_path, "wb") as f:
             f.write(toy_r1cs_dump())
     pub, wit = toy_witness()
-    td = srs_mod.Trapdoor.from_seed(args.seed.encode())
+    td = srs_mod.Trapdoor.from_seed(seed)
     t0 = time.time()
-    srs_mod.verifier_runs_setup(td, cache, len(pub), True, True, device=args.device)
-    print(f"setup: {time.time()-t0:.1f}s")
+    srs_mod.verifier_runs_setup(td, cache_dir, len(pub), True, True, device=device)
+    log(f"setup: {time.time()-t0:.1f}s")
     t0 = time.time()
-    prover_mod.prover_prepares_precomputes(cache, True, device=args.device)
-    print(f"precompute: {time.time()-t0:.1f}s")
+    prover_mod.prover_prepares_precomputes(cache_dir, True, device=device)
+    log(f"precompute: {time.time()-t0:.1f}s")
     t0 = time.time()
-    proof = prover_mod.prove(cache, pub, wit, device=args.device)
-    print(f"prove: {time.time()-t0:.1f}s")
+    proof = prover_mod.prove(cache_dir, pub, wit, device=device)
+    log(f"prove: {time.time()-t0:.1f}s")
     t0 = time.time()
     ok = srs_mod.verify(td, pub, proof)
-    print(f"verify: {time.time()-t0:.1f}s -> {ok}")
+    log(f"verify: {time.time()-t0:.1f}s -> {ok}")
+    return td, pub, proof, ok
+
+
+def _cmd_e2e(args):
+    _, _, proof, ok = toy_e2e(args.cache_dir, args.seed.encode(), args.device)
     if args.proof_out:
         _write_proof(args.proof_out, proof)
     sys.exit(0 if ok else 1)
 
 
 def _write_proof(path, proof):
+    from dvpari_tpu_torch.protocol.proof import _bits_to_bytes_le
+
     bits = proof.to_bits()
-    data = bytearray((len(bits) + 7) // 8)
-    for i, b in enumerate(bits):
-        if b:
-            data[i // 8] |= 1 << (i % 8)
     with open(path, "wb") as f:
-        f.write(bytes(data))
+        f.write(_bits_to_bytes_le(bits))
     print(f"proof ({len(bits)} bits) -> {path}")
 
 
 def _read_proof(path):
-    from dvpari_tpu_torch.protocol.proof import Proof
+    from dvpari_tpu_torch.protocol.proof import Proof, _bytes_to_bits_le
 
     with open(path, "rb") as f:
-        data = f.read()
-    bits = [bool((data[i // 8] >> (i % 8)) & 1) for i in range(944)]
-    return Proof.from_bits(bits)
+        return Proof.from_bits(_bytes_to_bits_le(f.read())[:944])
 
 
 def _cmd_setup(args):

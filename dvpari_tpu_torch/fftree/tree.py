@@ -33,7 +33,7 @@ from dvpari_tpu_torch.ops import fr
 
 # Largest domain whose vanishing-poly product tree runs as python-int
 # schoolbook; above it the GMP Kronecker-substitution tree
-# (utils/kronecker.py) takes over.  Tests shrink it.
+# (utils/kronecker.py) takes over.
 HOST_ZC_MAX = 4096
 
 

@@ -1,11 +1,15 @@
 """Per-phase wall-clock timing of setup and prove.
 
-Counterpart of dvpari_tpu/utils/timing.py.  A phase on a CUDA device is
-fenced with torch.cuda.synchronize() at both ends, so the device work a
-phase queued is charged to that phase (the few microseconds a fence
-costs are noise against phases of milliseconds or more).  Each phase is
-also a torch.profiler range of its name, so a profiled run attributes
-device time to phases.  Set DVPARI_TRACE=1 for live stderr lines.
+Counterpart of dvpari_tpu/utils/timing.py.  CUDA work is asynchronous,
+so by default a phase's time is the host's: device work it queued is
+charged to whichever later phase waits for it first.  With
+SYNC_PHASES on (DVPARI_SYNC_PHASES=1, or set by a measuring harness) a
+phase on a CUDA device is fenced with torch.cuda.synchronize() at both
+ends, so the device work a phase queued is charged to that phase, at
+the cost of the overlap between host dispatch and device work across
+phase boundaries.  Each phase is also a torch.profiler range of its
+name, so a profiled run attributes device time to phases.  Set
+DVPARI_TRACE=1 for live stderr lines.
 """
 
 from __future__ import annotations
@@ -18,10 +22,11 @@ import time
 import torch
 
 EVENTS: list = []
+SYNC_PHASES = bool(os.environ.get("DVPARI_SYNC_PHASES"))
 
 
 def _sync(device) -> None:
-    if device is not None and torch.device(device).type == "cuda":
+    if SYNC_PHASES and device is not None and torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
 

@@ -12,9 +12,14 @@ rung(): synth_multiterm(2^LOG_M - 2) -- 4 terms a row, a 512-entry
 coefficient table, seed 7; with its two public-output rows m = 2^LOG_M
 constraints -- in a fresh temporary cache: setup, precompute, a cold
 prove and a warm prove of a second witness (chain start 5 in place of
-3), each proof verified, a tampered one rejected.  Phases are fenced
-with torch.cuda.synchronize() (utils/timing.py); the ladder and
-point-add launches are counted per setup and per prove.
+3), each proof verified, a tampered one rejected.  Setup and these two
+proves run with their phases fenced by torch.cuda.synchronize()
+(utils/timing.py's SYNC_PHASES), for the per-phase split; the warm
+prove then runs FENCE_REPS times each without and with the fences,
+alternating, for the end-to-end time and the fences' cost.  The ladder
+and point-add launches are counted per setup and per prove.  Given a
+list, rung() also keeps the operands of every fan-out and MSM that
+setup and the cold prove call, for a caller to replay the kernels on.
 
 chip_smoke.py runs both; run alone, the script also proves the second
 witness once more under torch.profiler (on CUDA) for the device's busy
@@ -23,8 +28,10 @@ them and ends with one JSON line of the numbers (default LOG_M 16,
 device cuda).
 """
 
+import contextlib
 import json
 import os
+import statistics
 import sys
 import tempfile
 import time
@@ -35,6 +42,7 @@ if ROOT not in sys.path:
 
 TOY_SEED = b"dvpari-toy-43"
 RUNG_SEED = b"dvpari-e2e-rung"
+FENCE_REPS = 5
 
 
 def _golden_toy_hex() -> str:
@@ -45,7 +53,8 @@ def _golden_toy_hex() -> str:
     return ns["TOY_PROOF_HEX"]
 
 
-def _flip_a0(proof):
+def flip_a0(proof):
+    """The proof with bit 0 of a0 (bit 480 of the 944) flipped."""
     from dvpari_tpu_torch.protocol.proof import Proof
 
     bits = proof.to_bits()
@@ -67,34 +76,54 @@ def _reset() -> None:
 
 
 def toy(device, log=print) -> dict:
-    from dvpari_tpu_torch.protocol import prover, srs
+    from dvpari_tpu_torch.__main__ import toy_e2e
+    from dvpari_tpu_torch.protocol import srs
     from dvpari_tpu_torch.protocol.proof import _bits_to_bytes_le
-    from dvpari_tpu_torch.r1cs.toy import toy_r1cs_dump, toy_witness
-    from dvpari_tpu_torch.storage import artifacts as art
 
-    pub, wit = toy_witness()
-    td = srs.Trapdoor.from_seed(TOY_SEED)
     with tempfile.TemporaryDirectory() as cache:
-        with open(os.path.join(cache, art.R1CS_CONSTRAINTS_FILE), "wb") as f:
-            f.write(toy_r1cs_dump())
         _reset()
-        srs.verifier_runs_setup(td, cache, len(pub), True, True, device=device)
-        prover.prover_prepares_precomputes(cache, True, device=device)
-        proof = prover.prove(cache, pub, wit, device=device)
+        td, pub, proof, ok = toy_e2e(cache, TOY_SEED, device, log=lambda _: None)
         launches = _launches()
     got = _bits_to_bytes_le(proof.to_bits()).hex()
     if got != _golden_toy_hex():
         raise AssertionError(f"toy proof {got} != TOY_PROOF_HEX")
-    if not srs.verify(td, pub, proof):
+    if not ok:
         raise AssertionError("verify rejected the toy proof")
-    if srs.verify(td, pub, _flip_a0(proof)):
+    if srs.verify(td, pub, flip_a0(proof)):
         raise AssertionError("verify accepted the toy proof with a0's bit 0 flipped")
     log(f"toy e2e on {device}: proof equals TOY_PROOF_HEX, verify accepts it and rejects "
         f"a0 with one bit flipped; launches {json.dumps(launches)}")
     return {"launches": launches}
 
 
-def rung(log_m: int, device, log=print, profile: bool = False) -> dict:
+@contextlib.contextmanager
+def _recording(ops):
+    """While open, append ("fan-out", scalars, None) or ("msm", scalars,
+    planes) for every xsk233.mulgen_limbs / msm_limbs call to `ops` (a
+    list; None records nothing).  The calls run unchanged."""
+    from dvpari_tpu_torch.ops import xsk233
+
+    if ops is None:
+        yield
+        return
+    msm, mulgen = xsk233.msm_limbs, xsk233.mulgen_limbs
+
+    def msm_rec(scalars, planes, device="cuda"):
+        ops.append(("msm", scalars, planes))
+        return msm(scalars, planes, device)
+
+    def mulgen_rec(scalars, device="cuda"):
+        ops.append(("fan-out", scalars, None))
+        return mulgen(scalars, device)
+
+    xsk233.msm_limbs, xsk233.mulgen_limbs = msm_rec, mulgen_rec
+    try:
+        yield
+    finally:
+        xsk233.msm_limbs, xsk233.mulgen_limbs = msm, mulgen
+
+
+def rung(log_m: int, device, log=print, profile: bool = False, record=None) -> dict:
     import torch
 
     from dvpari_tpu_torch.protocol import prover, srs
@@ -109,7 +138,7 @@ def rung(log_m: int, device, log=print, profile: bool = False) -> dict:
     dump2, pub2, priv2 = synth_multiterm(m - 2, x=5)
     if dump2 != dump or pub2 == pub:
         raise AssertionError("second witness must keep the circuit and change the outputs")
-    out = {"m": m, "circuit_s": time.perf_counter() - t0}
+    out = {"m": m, "n_wires": 1 + len(pub) + len(priv), "circuit_s": time.perf_counter() - t0}
     td = srs.Trapdoor.from_seed(RUNG_SEED)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -123,30 +152,50 @@ def rung(log_m: int, device, log=print, profile: bool = False) -> dict:
             torch.cuda.synchronize()
         return r, time.perf_counter() - t
 
-    with tempfile.TemporaryDirectory() as cache:
-        with open(os.path.join(cache, art.R1CS_CONSTRAINTS_FILE), "wb") as f:
-            f.write(dump)
-        _reset()
-        _, out["setup_s"] = timed(lambda: srs.verifier_runs_setup(td, cache, 2, True, True, device=device))
-        out["setup_phases"] = timing.summary()
-        out["setup_launches"] = _launches()
-        _reset()
-        _, out["precompute_s"] = timed(lambda: prover.prover_prepares_precomputes(cache, True, device=device))
-        proofs = []
-        for name, p, w in (("cold", pub, priv), ("warm", pub2, priv2)):
+    sync_was = timing.SYNC_PHASES
+    timing.SYNC_PHASES = True
+    try:
+        with tempfile.TemporaryDirectory() as cache:
+            with open(os.path.join(cache, art.R1CS_CONSTRAINTS_FILE), "wb") as f:
+                f.write(dump)
             _reset()
-            proof, out[f"{name}_prove_s"] = timed(lambda: prover.prove(cache, p, w, device=device))
-            out[f"{name}_prove_phases"] = timing.summary()
-            out[f"{name}_prove_launches"] = _launches()
-            proofs.append((p, proof))
-        if profile:
-            out["profiled_warm_prove"] = profiled_prove(cache, pub2, priv2, device, log)
+            with _recording(record):
+                _, out["setup_s"] = timed(
+                    lambda: srs.verifier_runs_setup(td, cache, 2, True, True, device=device))
+            out["setup_phases"] = timing.summary()
+            out["setup_launches"] = _launches()
+            _reset()
+            _, out["precompute_s"] = timed(
+                lambda: prover.prover_prepares_precomputes(cache, True, device=device))
+            proofs = []
+            for name, p, w in (("cold", pub, priv), ("warm", pub2, priv2)):
+                _reset()
+                with _recording(record if name == "cold" else None):
+                    proof, out[f"{name}_prove_s"] = timed(
+                        lambda: prover.prove(cache, p, w, device=device))
+                out[f"{name}_prove_phases"] = timing.summary()
+                out[f"{name}_prove_launches"] = _launches()
+                proofs.append((p, proof))
+            if cuda:
+                runs = {False: [], True: []}
+                for _ in range(FENCE_REPS):
+                    for fenced in (False, True):
+                        timing.SYNC_PHASES = fenced
+                        _, t = timed(lambda: prover.prove(cache, pub2, priv2, device=device))
+                        runs[fenced].append(t)
+                out["warm_prove_unfenced_runs_s"] = runs[False]
+                out["warm_prove_fenced_runs_s"] = runs[True]
+                timing.SYNC_PHASES = True
+            if profile:
+                out["profiled_warm_prove"] = profiled_prove(cache, pub2, priv2, device, log)
+    finally:
+        timing.SYNC_PHASES = sync_was
     for (p, proof), name in zip(proofs, ("cold", "warm")):
         ok, t = timed(lambda: srs.verify(td, p, proof))
         out[f"verify_{name}_ms"] = 1e3 * t
         if not ok:
             raise AssertionError(f"verify rejected the {name} proof at m = 2^{log_m}")
-    if srs.verify(td, proofs[1][0], _flip_a0(proofs[1][1])):
+    if srs.verify(td, proofs[1][0], flip_a0(proofs[1][1])):
         raise AssertionError(f"verify accepted a tampered proof at m = 2^{log_m}")
     if srs.verify(td, proofs[0][0], proofs[1][1]):
         raise AssertionError("verify accepted the warm proof against the cold witness's outputs")
@@ -212,6 +261,11 @@ def report(r: dict, tag: str, log=print) -> None:
         f"{r['precompute_s']:.3f} s, cold prove {r['cold_prove_s']:.3f} s, warm prove "
         f"{r['warm_prove_s']:.3f} s, verify {r['verify_cold_ms']:.1f} / {r['verify_warm_ms']:.1f} ms "
         f"(circuit made in {r['circuit_s']:.1f} s) {tag}")
+    if "warm_prove_unfenced_runs_s" in r:
+        runs = [r["warm_prove_unfenced_runs_s"], r["warm_prove_fenced_runs_s"]]
+        log(f"e2e warm prove without phase fences {statistics.median(runs[0]):.4f} s, with them "
+            f"{statistics.median(runs[1]):.4f} s (medians of {FENCE_REPS} each, alternating; "
+            f"runs {[round(t, 4) for t in runs[0]]} and {[round(t, 4) for t in runs[1]]}) {tag}")
     for key in ("setup_phases", "cold_prove_phases", "warm_prove_phases"):
         log(f"e2e {key} " + json.dumps({k.split(".", 1)[1]: round(v, 4) for k, v in r[key].items()}))
     log("e2e launches " + json.dumps({k: r[k] for k in ("setup_launches", "cold_prove_launches",

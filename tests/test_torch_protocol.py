@@ -9,6 +9,7 @@ Tolerance: zero -- bytes, bits and canonical values must be equal.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -25,10 +26,11 @@ from dvpari_tpu_torch.r1cs.toy import toy_r1cs_dump, toy_witness
 from dvpari_tpu_torch.storage import artifacts as art
 from dvpari_tpu_torch.utils import xsk233_host as host
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-import golden_n16 as G  # noqa: E402
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+import golden_n16 as G  # noqa: E402
+from e2e_card import flip_a0  # noqa: E402
 TOY_SEED = b"dvpari-toy-43"
 
 
@@ -52,8 +54,35 @@ def test_toy_e2e_gives_the_pinned_proof(toy_cache):
     assert _bits_to_bytes_le(bits).hex() == G.TOY_PROOF_HEX
     assert Proof.from_bits(bits) == proof
     assert srs.verify(td, pub, proof)
-    bad = Proof.from_bits([not b if i == 480 else b for i, b in enumerate(bits)])  # a0's bit 0
+    bad = flip_a0(proof)
     assert bad.a0 != proof.a0 and not srs.verify(td, pub, bad)
+
+
+def test_setup_over_given_precomputes_without_validation(toy_cache, tmp_path):
+    """The CLI's setup --use-precomputes --no-validate (is_fresh_setup=False,
+    validate_precompute=False) over the toy cache's domain precomputes,
+    then prove without validation: the same pinned proof.  Without the
+    precomputes such a setup refuses to run."""
+    from dvpari_tpu_torch.__main__ import main
+
+    cache, _ = toy_cache
+    given = [art.R1CS_CONSTRAINTS_FILE, art.Z_POLY, art.Z_POLYD, art.BAR_WTS, art.BAR_WTSD]
+    given += [t + ".npz" for t in (art.TREE_2N, art.TREE_2ND)]
+    for name in given:
+        shutil.copy(os.path.join(cache, name), tmp_path / name)
+    argv = ["setup", "--cache-dir", str(tmp_path), "--seed", TOY_SEED.decode(),
+            "--use-precomputes", "--no-validate", "--device", "cpu"]
+    main(argv)
+    prover.prover_prepares_precomputes(str(tmp_path), False, device="cpu")
+    pub, wit = toy_witness()
+    proof = prover.prove(str(tmp_path), pub, wit, device="cpu")
+    assert _bits_to_bytes_le(proof.to_bits()).hex() == G.TOY_PROOF_HEX
+
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    shutil.copy(os.path.join(cache, art.R1CS_CONSTRAINTS_FILE), empty)
+    with pytest.raises(AssertionError, match="precomputes missing"):
+        main(argv[:2] + [str(empty)] + argv[3:])
 
 
 def test_transcript_alpha_pinned():
