@@ -31,6 +31,18 @@ ladder and point-add launch of that setup and cold prove is then
 replayed on its own operands against its plain version, bit for bit.
 The kernels line's launches sum the counted main paths: the 2^18
 fan-out and MSMs, the 2^16 setup and both proves.
+
+Before the protocol, two host-and-torch-op phases of the path: the
+native host backend (dvpari_tpu_torch/native.py, built with g++ beside
+the nvcc builds) -- 16 seeded scalar multiplications and decodes held to
+the python oracle, and the 2^16-leaf vanishing polynomial held to the
+ctypes Kronecker tree, both timed; and the device tree build (K8,
+fftree/device_build.py) -- at 2^17 leaves (the rung's trees) held to
+the host chain layer for layer, both timed, and at 2^22 leaves timed
+with its peak memory, 64 seeded lanes of every layer held to x(C + [i]G)
+and to the isogeny x-map of the layer below in python ints.  The rung's
+setup must then have built its trees on the path the threshold
+(DVPARI_DEVICE_TREE_MIN) picks.
 """
 
 import json
@@ -47,6 +59,9 @@ N_RAGGED = (1 << 16) + 5  # a wire-count-shaped g_m
 N_SMALL = 100  # compare phase: 4 columns of points, 1 zero column added
 N_SPOT = 64  # fan-out slots checked against host.smul
 E2E_LOG_M = 16  # the protocol rung: m = 2^16 constraints
+N_NATIVE = 16  # native scalar multiplications and decodes held to the oracle
+TREE_LOG_N = E2E_LOG_M + 1  # the rung's trees: 2m leaves
+TREE_BIG_LOG_N = 22  # where the JAX package switches to its device build
 REPS = 3
 SEED = 7
 ORACLE_WORKERS = 6
@@ -65,6 +80,13 @@ def _smul_g(k: int):
     from dvpari_tpu_torch.utils import xsk233_host as host
 
     return host.smul(k, (host.GX, host.GY))
+
+
+def _smul_of_multiple(k: int, e: int):
+    """Oracle job (runs in a worker process): [k]([e]G) on the host."""
+    from dvpari_tpu_torch.utils import xsk233_host as host
+
+    return host.smul(k, host.smul(e, (host.GX, host.GY)))
 
 
 def msm_point_adds(n: int) -> int:
@@ -93,9 +115,11 @@ def main() -> int:
 
     import numpy as np
 
+    from dvpari_tpu_torch import native
+    from dvpari_tpu_torch.fftree import device_build as dbuild, tree as tree_mod
     from dvpari_tpu_torch.ops import fr, msm_kernel, xsk233
     from dvpari_tpu_torch.ops import xsk233_bs as bs
-    from dvpari_tpu_torch.utils import roofline
+    from dvpari_tpu_torch.utils import kronecker, roofline
     from dvpari_tpu_torch.utils import xsk233_host as host
 
     dev = torch.device("cuda")
@@ -141,6 +165,7 @@ def main() -> int:
     ks = [rng.randrange(1, host.R) for _ in range(N_FANOUT)]
     kr = [rng.randrange(1, host.R) for _ in range(N_RAGGED)]
     spots = sorted(rng.sample(range(1, N_FANOUT - 1), N_SPOT - 2) + [0, N_FANOUT - 1])
+    native_ke = [(rng.randrange(1, host.R), rng.randrange(1, host.R)) for _ in range(N_NATIVE)]
     want_msm = sum(k * e for k, e in zip(ks, es)) % host.R
     want_ragged = sum(k * e for k, e in zip(kr, es)) % host.R
     es_limbs, ks_limbs, kr_limbs = fr.from_int(es), fr.from_int(ks), fr.from_int(kr)
@@ -150,15 +175,20 @@ def main() -> int:
         oracle_msm = pool.submit(_smul_g, want_msm)
         oracle_ragged = pool.submit(_smul_g, want_ragged)
         oracle_spots = [pool.submit(_smul_g, es[j]) for j in spots]
+        oracle_native = [pool.submit(_smul_of_multiple, k, e) for k, e in native_ke]
 
-        # -- phase 2: build (the main library and the profiling one) --------
+        # -- phase 2: build (the main library, the profiling one, the native
+        # host backend), all at once
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as builds:
+        with ThreadPoolExecutor(3) as builds:
             jobs = [builds.submit(msm_kernel.build),
-                    builds.submit(msm_kernel.build, msm_kernel.SOURCE, msm_kernel.PROFILE_DEFINES)]
+                    builds.submit(msm_kernel.build, msm_kernel.SOURCE, msm_kernel.PROFILE_DEFINES),
+                    builds.submit(native.build)]
             libs = [j.result() for j in jobs]
         log(f"build: {time.perf_counter() - t0:.2f} s -> "
             + ", ".join(os.path.relpath(so) for so in libs))
+        log(f"native host backend: {' '.join(os.path.basename(a) for a in native.command('LIB'))}; "
+            f"PCLMUL {native.has_pclmul()}, OpenMP threads {native.omp_threads()}")
         for what, so in zip(("main", "profiling"), libs):
             for line in msm_kernel.build_logs.get(so, "").splitlines():
                 if "registers" in line or "spill" in line or "smem" in line:
@@ -302,6 +332,7 @@ def main() -> int:
         if xsk233.to_affine_int(res_r) != oracle_ragged.result():
             raise AssertionError("MSM 2^16+5 != host oracle")
         log("MSM 2^16+5: equals (sum k_i e_i mod R) * G")
+        native_want = [f.result() for f in oracle_native]
 
     # -- the kernels against their plain versions at the main path's shapes:
     # the 2^18 fan-out's ladder (shared table), the 2^18 MSM's table build
@@ -392,14 +423,73 @@ def main() -> int:
             rec["small_ms"] = 1e3 * median_s(kernel_fn)
             rec["plain_ms"] = 1e3 * median_s(plain_fn)
 
-    # -- phase 8: the protocol end to end (scripts/e2e_card.py) ------------------
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
     import e2e_card
+    import tree_build
+
+    # -- the native host backend: the verifier's scalar multiplications and
+    # decodes against the python oracle, the vanishing tree against ctypes
+    t0 = time.perf_counter()
+    got = [host.smul_fast(k, host.smul_fast(e, (host.GX, host.GY))) for k, e in native_ke]
+    t_smul = (time.perf_counter() - t0) / (2 * N_NATIVE)
+    if got != native_want:
+        raise AssertionError("native smul_fast != python smul")
+    records = [host.encode(p) for p in got]
+    t0 = time.perf_counter()
+    dec = [host.decode_fast(r) for r in records]
+    t_dec = (time.perf_counter() - t0) / N_NATIVE
+    t0 = time.perf_counter()
+    dec_py = [host.decode(r) for r in records]
+    t_dec_py = (time.perf_counter() - t0) / N_NATIVE
+    if dec != dec_py or dec != [(p, True) for p in got]:
+        raise AssertionError("native decode_fast != python decode")
+    log(f"native: {N_NATIVE} smul_fast([k]([e]G)) equal python smul, {N_NATIVE} decode_fast equal "
+        f"decode; {1e3 * t_smul:.3f} ms per scalar multiplication, {1e3 * t_dec:.3f} ms per "
+        f"decode (python {1e3 * t_dec_py:.1f} ms) {tag}")
+
+    # -- the device tree build (K8): 2^17 leaves against the host chain, then
+    # 2^22 leaves, timed with its peak memory and spot-checked in python ints
+    r = tree_build.host_vs_device(TREE_LOG_N, dev, reps=1)
+    log(f"tree 2^{TREE_LOG_N} leaves: device build {r['device_s']:.4f} s, host chain "
+        f"{r['host_s']:.4f} s, every layer equal {tag}")
+    small = tree_mod.FFTree.build(1 << TREE_LOG_N, False, TREE_LOG_N, dev, device_build=True)
+    dom = small.layers[0][:, 0::2]  # 2^16 leaves, as setup's z_coeffs(1) takes them
+    t0 = time.perf_counter()
+    zc = kronecker.vanishing_coeffs_limbs(dom)
+    t_zn = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zc_ct = kronecker.vanishing_coeffs(fr.to_int(dom), fr.P)
+    t_zc = time.perf_counter() - t0
+    if fr.to_int(zc) != zc_ct:
+        raise AssertionError("native vanishing tree != ctypes Kronecker tree")
+    log(f"vanishing polynomial of 2^{TREE_LOG_N - 1} leaves: native {t_zn:.4f} s, ctypes Kronecker "
+        f"tree {t_zc:.4f} s (its python-int conversions included), equal {tag}")
+    del small, dom, zc, zc_ct
+    sync()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    big = tree_mod.FFTree.build(1 << TREE_BIG_LOG_N, False, TREE_BIG_LOG_N, dev, device_build=True)
+    sync()
+    t_big = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    checked = tree_build.spot_check(big, False, TREE_BIG_LOG_N)
+    log(f"tree 2^{TREE_BIG_LOG_N} leaves: device build {t_big:.4f} s, peak device memory {peak:.2f} "
+        f"GiB (layer-0 chunks of {dbuild.layer0_chunk()} lanes); {checked} values of its "
+        f"{len(big.layers)} layers equal x(C + [i]G) and the isogeny x-maps {tag}")
+    del big
+
+    # -- phase 8: the protocol end to end (scripts/e2e_card.py) ------------------
 
     e2e_card.toy(dev, log)
     rung_ops = []  # operands of the fan-outs and MSMs of the rung's setup and cold prove
     e2e = e2e_card.rung(E2E_LOG_M, dev, log, record=rung_ops)
     e2e_card.report(e2e, tag, log)
+    want_path = "device" if 2 * e2e["m"] >= tree_mod.device_tree_min() else "host"
+    if e2e["tree_path"] != want_path:
+        raise AssertionError(f"the rung's setup built its trees on the {e2e['tree_path']} path, "
+                             f"the threshold picks {want_path}")
     m, n_wires = e2e["m"], e2e["n_wires"]
     want = {"setup": {"ladder": 5, "point_add": 0},
             "prove": {"ladder": 3,

@@ -9,8 +9,9 @@ implementation detail - any 2-isogeny whose kernel is the order-2 point
 of the current subgroup yields the same FFTree domains (and all FFTree
 operations are representation-independent polynomial maps).
 
-A copy of dvpari_tpu/fftree/aux_curve.py without build_chain_meta (it
-serves only the device leaf builder, which the port does not carry).
+A copy of dvpari_tpu/fftree/aux_curve.py.  `build_chain` enumerates
+every layer on the host; `build_chain_meta` gives only the constants
+that the device build (fftree/device_build.py) starts from.
 
 Host-side: python-int arithmetic; this runs once per domain size and is
 cached (the reference treats tree construction the same way,
@@ -195,3 +196,47 @@ def build_chain(domain_len: int, shift_by_one: bool, base_log_n: int):
 
 def log2(n: int) -> int:
     return n.bit_length() - 1
+
+
+@dataclass
+class ChainMeta:
+    """Per-layer constants without point enumeration (cheap host work),
+    for the device build (fftree/device_build.py): layer-0 points come
+    from mixed adds of doubled generators, higher layers from isogeny
+    x-maps."""
+
+    coset: tuple
+    gen_doubles: list  # [2^j * G for j < log2(n)] as points
+    layers: list  # per layer: (curve, isogeny or None)
+
+
+def build_chain_meta(domain_len: int, shift_by_one: bool, base_log_n: int) -> ChainMeta:
+    assert domain_len & (domain_len - 1) == 0
+    log_n = domain_len.bit_length() - 1
+    assert log_n <= SUBGROUP_ADICITY
+    curve = Curve(CURVE_A, CURVE_B)
+    gen = double_k(curve, SUBGROUP_GEN, SUBGROUP_ADICITY - log_n)
+    base_gen = double_k(curve, SUBGROUP_GEN, SUBGROUP_ADICITY - base_log_n)
+    coset = COSET_OFFSET
+    if shift_by_one:
+        coset = add(curve, coset, base_gen)
+
+    gen_doubles = []
+    g = gen
+    for _ in range(log_n):
+        gen_doubles.append(g)
+        g = double(curve, g)
+
+    layers = []
+    c, gl, n = curve, gen, domain_len
+    while True:
+        if n == 1:
+            layers.append((c, None))
+            break
+        ker = double_k(c, gl, log2(n) - 1)
+        assert ker is not None and ker[1] == 0
+        iso = two_isogeny_from_kernel(c, ker[0])
+        layers.append((c, iso))
+        gl = iso.map_point(gl)
+        c, n = iso.codomain, n // 2
+    return ChainMeta(coset=coset, gen_doubles=gen_doubles, layers=layers)

@@ -1,10 +1,11 @@
 """FFTree: the ECFFT polynomial engine over Fr, as torch level passes.
 
-Counterpart of dvpari_tpu/fftree/tree.py, the parts setup and prove use:
-the host build through the isogeny chain, the leaf views, the extend
-tables, the vanishing-polynomial coefficients, `extend` (evals on one
-moiety -> evals on the other) and `enter` (coefficients -> evals on all
-leaves).
+Counterpart of dvpari_tpu/fftree/tree.py: the build (the host isogeny
+chain, or the device build of fftree/device_build.py from
+DVPARI_DEVICE_TREE_MIN leaves), the leaf views, the extend tables, the
+vanishing-polynomial coefficients, `extend` (evals on one moiety ->
+evals on the other), `enter` (coefficients -> evals on all leaves) and
+`exit` (evals on all leaves -> coefficients).
 
 Every level is one whole-array pass: at depth k all 2^k subproblems live
 in one tensor `(20, *B, V, s)` (limb axis, batch axes, subproblem axis,
@@ -12,9 +13,8 @@ domain axis), so a level is a handful of large elementwise Fr ops.  A
 subtree of depth d is a view: stride-2^d slices of the same layers.  The
 JAX package's chunk lists, program families and warm jobs
 (fftree/chunked.py) exist to bound the TPU's compile universe; torch
-compiles nothing, so they have no counterpart here.  `exit` and the
-device layer-0 builder are not ported (setup and prove do not call them
-below 2^22 leaves).
+compiles nothing, so they have no counterpart here.  Neither setup nor
+prove calls `exit`.
 
 Results are polynomial maps, so they equal the JAX package's after
 strong_normalize; the loose limbs may differ.
@@ -28,13 +28,29 @@ import numpy as np
 import torch
 
 from dvpari_tpu_torch.device import resolve
-from dvpari_tpu_torch.fftree import aux_curve
+from dvpari_tpu_torch.fftree import aux_curve, device_build as dbuild
 from dvpari_tpu_torch.ops import fr
+from dvpari_tpu_torch.utils import kronecker
+from dvpari_tpu_torch.utils.timing import phase
 
 # Largest domain whose vanishing-poly product tree runs as python-int
-# schoolbook; above it the GMP Kronecker-substitution tree
-# (utils/kronecker.py) takes over.
+# schoolbook; above it the GMP Kronecker-substitution tree of the native
+# library (utils/kronecker.py:vanishing_coeffs_limbs) takes over.
 HOST_ZC_MAX = 4096
+
+# Smallest domain that FFTree.build builds on the device by default
+# (DVPARI_DEVICE_TREE_MIN overrides it): on an H100 the device build beat
+# the host chain from 2^16 leaves on (2.11 s against 2.54 s; 3.03 s
+# against 6.11 s at 2^17), and lost below (PERF.md, K8;
+# scripts/tree_build.py --sizes).
+DEVICE_TREE_MIN = 1 << 16
+
+
+def device_tree_min() -> int:
+    return int(os.environ.get("DVPARI_DEVICE_TREE_MIN", DEVICE_TREE_MIN))
+
+
+_SCHOOLBOOK_CUTOFF = 16  # polynomial products below this length are schoolbook
 
 
 def _log2(n: int) -> int:
@@ -97,12 +113,26 @@ class FFTree:
         self.table_dir: "str | None" = None
 
     @classmethod
-    def build(cls, domain_len: int, shift_by_one: bool, base_log_n: int, device="cuda"):
-        """Chain construction on the host (python ints, aux_curve)."""
-        chain = aux_curve.build_chain(domain_len, shift_by_one, base_log_n)
-        layers = [fr.from_int(layer.xs) for layer in chain]
-        x0s = [layer.isogeny.x0 for layer in chain if layer.isogeny is not None]
-        return cls(layers, x0s, shift_by_one, base_log_n, device)
+    def build(cls, domain_len: int, shift_by_one: bool, base_log_n: int, device="cuda",
+              device_build: "bool | None" = None):
+        """The tree's layers on the host (the isogeny chain in python
+        ints, aux_curve.build_chain) or on `device` (device_build.py);
+        device_build=None picks the device from DVPARI_DEVICE_TREE_MIN
+        leaves (default DEVICE_TREE_MIN).  The phase "tree.device_build"
+        or "tree.host_build" records which ran."""
+        dev = resolve(device)
+        if device_build is None:
+            device_build = domain_len >= device_tree_min()
+        with phase("tree.device_build" if device_build else "tree.host_build", dev, n=domain_len):
+            if device_build:
+                meta = aux_curve.build_chain_meta(domain_len, shift_by_one, base_log_n)
+                layers = dbuild.build_layers(meta, domain_len, dev)
+                x0s = [iso.x0 for _, iso in meta.layers if iso is not None]
+            else:
+                chain = aux_curve.build_chain(domain_len, shift_by_one, base_log_n)
+                layers = [fr.from_int(layer.xs) for layer in chain]
+                x0s = [layer.isogeny.x0 for layer in chain if layer.isogeny is not None]
+        return cls(layers, x0s, shift_by_one, base_log_n, dev)
 
     # -- table persistence ----------------------------------------------------
 
@@ -228,7 +258,7 @@ class FFTree:
     def z_coeffs(self, d: int) -> torch.Tensor:
         """Vanishing-poly coefficients of the view(d) leaves,
         (20, n_d + 1) canonical limbs: the python-int product tree up to
-        HOST_ZC_MAX leaves, the GMP Kronecker tree above."""
+        HOST_ZC_MAX leaves, the native GMP Kronecker tree above."""
         key = ("zc", d)
         if key in self._cache:
             return self._cache[key]
@@ -236,13 +266,11 @@ class FFTree:
         if z is not None:
             got = z["zc"]
         else:
-            dom = fr.to_int(self.layers[0][:, :: 1 << d])
-            if len(dom) <= HOST_ZC_MAX:
-                got = fr.from_int(_host_vanishing_coeffs(dom))
+            dom = self.layers[0][:, :: 1 << d]
+            if dom.shape[-1] <= HOST_ZC_MAX:
+                got = fr.from_int(_host_vanishing_coeffs(fr.to_int(dom)))
             else:
-                from dvpari_tpu_torch.utils import kronecker
-
-                got = fr.from_int(kronecker.vanishing_coeffs(dom, fr.P))
+                got = kronecker.vanishing_coeffs_limbs(dom)
             self._table_save(f"zc_{d}", zc=got)
         self._cache[key] = self._dev(got)
         return self._cache[key]
@@ -270,6 +298,45 @@ class FFTree:
             xe, xo = self._xnn(d + k)
             state = _enter_level(state, dec, rec, xe, xo)
         return state[..., 0, :]
+
+    def exit(self, evals: torch.Tensor, d: int = 0) -> torch.Tensor:
+        """Evals (20, *B, n) on all view(d) leaves, n = self.n >> d ->
+        the coefficients of the polynomial of degree < n through them:
+        K forward levels split P = A + Z0 B down to single values, K
+        backward levels recombine the coefficients."""
+        n = evals.shape[-1]
+        assert n == self.n >> d, (n, self.n, d)
+        K = _log2(n)
+        state = evals.to(self.device)[..., None, :]  # (20, *B, V=1, s=n)
+        for k in range(K):
+            ext1 = self._extend_consts(d + k, "S1")
+            ext0 = self._extend_consts(d + k, "S0")
+            state = _exit_fwd_level(state, ext1, ext0, self._z0_inv_odd(d + k))
+        for k in reversed(range(K)):
+            state = _exit_bwd_level(state, self._z0_tail(d + k + 1))
+        return state[..., 0, :]
+
+    def _z0_inv_odd(self, d: int) -> torch.Tensor:
+        """1 / Z_{view(d+1)} on the odd leaves of view(d): (20, n_d / 2)."""
+        key = ("z0inv", d)
+        if key in self._cache:
+            return self._cache[key]
+        z = self._table_load(f"z0inv_{d}")
+        if z is not None:
+            self._cache[key] = self._dev(z["inv"])
+            return self._cache[key]
+        n = self.n >> d
+        zc = self.z_coeffs(d + 1)  # (20, n/2 + 1)
+        padded = fr.zeros((n,), self.device)
+        padded[:, : zc.shape[-1]] = zc
+        out = fr.batch_inverse(self.enter(padded, d)[:, 1::2], axis=0)
+        self._table_save(f"z0inv_{d}", inv=out.cpu().numpy())
+        self._cache[key] = out
+        return out
+
+    def _z0_tail(self, d: int) -> torch.Tensor:
+        """Z_{view(d)} without its monic top term: (20, n_d) coefficients."""
+        return self.z_coeffs(d)[..., :-1]
 
 
 def _extend_tabled(evals: torch.Tensor, dec, rec) -> torch.Tensor:
@@ -306,3 +373,59 @@ def _enter_level(state, dec, rec, xe, xo):
     odd = fr.add(u_ext, fr.mul(_bcast(xo, state.ndim), v_ext))
     st = torch.stack([even, odd], dim=-1)  # (..., V/2, sz, 2)
     return st.reshape(*st.shape[:-3], st.shape[-3], 2 * st.shape[-2])
+
+
+def _exit_fwd_level(state, ext1, ext0, z0inv):
+    """One forward exit level: on each subproblem's evals, P = A + Z0 B
+    with A, B of half the degree; A's evals on the even leaves are P's,
+    B's on the odd leaves are (P - A) / Z0 there, and an extend carries
+    each to the other moiety.  (..., V, s) -> (..., 2V, s/2)."""
+    y0 = state[..., 0::2]
+    y1 = state[..., 1::2]
+    a_odd = _extend_tabled(y0, *ext1)
+    b_odd = fr.mul(fr.sub(y1, a_odd), _bcast(z0inv, state.ndim))
+    b_even = _extend_tabled(b_odd, *ext0)
+    st = torch.stack([y0, b_even], dim=-2)  # (..., V, 2, s/2)
+    return st.reshape(*st.shape[:-3], -1, st.shape[-1])
+
+
+def _exit_bwd_level(state, ztail):
+    """One backward exit level: coefficients P = [A || B] + Z0_tail * B.
+    (..., 2V, sz) -> (..., V, 2 sz)."""
+    sz = state.shape[-1]
+    st = state.reshape(*state.shape[:-2], -1, 2, sz)
+    A, B = st[..., 0, :], st[..., 1, :]
+    prod = _polymul(_bcast(ztail, B.ndim), B)  # (..., V, 2 sz - 1)
+    out = torch.cat([A, B], dim=-1)
+    out[..., : 2 * sz - 1] = fr.add(out[..., : 2 * sz - 1], prod)
+    return out
+
+
+def _polymul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Product of coefficient vectors of one power-of-two length n:
+    (20, *A, n) x (20, *B, n) -> (20, *broadcast, 2n - 1)."""
+    n = a.shape[-1]
+    assert b.shape[-1] == n and n & (n - 1) == 0
+    shape = torch.broadcast_shapes(a.shape[1:-1], b.shape[1:-1])
+    a = a.expand(fr.NLIMB, *shape, n).reshape(fr.NLIMB, -1, n)
+    b = b.expand(fr.NLIMB, *shape, n).reshape(fr.NLIMB, -1, n)
+    return _karatsuba(a, b).reshape(fr.NLIMB, *shape, 2 * n - 1)
+
+
+def _karatsuba(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(20, V, n) x (20, V, n) -> (20, V, 2n - 1), level-synchronous: the
+    three half products of every pair are one batch of 3V pairs."""
+    V, n = a.shape[1], a.shape[-1]
+    out = fr.zeros((V, 2 * n - 1), a.device)
+    if n <= _SCHOOLBOOK_CUTOFF:
+        for i in range(n):
+            out[..., i : i + n] = fr.add(out[..., i : i + n], fr.mul(a[..., i : i + 1], b))
+        return out
+    h = n // 2
+    a0, a1, b0, b1 = a[..., :h], a[..., h:], b[..., :h], b[..., h:]
+    p = _karatsuba(torch.cat([a0, a1, fr.add(a0, a1)], dim=1),
+                   torch.cat([b0, b1, fr.add(b0, b1)], dim=1))
+    p0, p2, pm = p[:, :V], p[:, V : 2 * V], p[:, 2 * V :]
+    for off, part in ((0, p0), (h, fr.sub(fr.sub(pm, p0), p2)), (2 * h, p2)):
+        out[..., off : off + 2 * h - 1] = fr.add(out[..., off : off + 2 * h - 1], part)
+    return out

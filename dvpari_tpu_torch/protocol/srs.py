@@ -14,7 +14,8 @@ Counterpart of dvpari_tpu/protocol/srs.py:
     accept iff v0*K + u0*G == P and all decodings valid.
 
 The five fan-outs run through the port's fixed-base ladder
-(ops/xsk233.py:mulgen_limbs); verify runs on the host in python ints.
+(ops/xsk233.py:mulgen_limbs); verify runs on the host, its point decodes
+and scalar multiplications in the native library (native.py).
 """
 
 from __future__ import annotations
@@ -215,10 +216,11 @@ def verifier_runs_setup(
 
 
 def verify(trapdoor: Trapdoor, public_inputs: "list[int]", proof: Proof) -> bool:
-    """O(1) verification on the host (python ints): two point decodes,
-    the transcript, two scalar multiplications."""
-    commit_p, p_valid = host.decode(proof.commit_p)
-    kzg_k, k_valid = host.decode(proof.kzg_k)
+    """O(1) verification on the host: two point decodes, the transcript,
+    two scalar multiplications (the decodes and multiplications in the
+    native library)."""
+    commit_p, p_valid = host.decode_fast(proof.commit_p)
+    kzg_k, k_valid = host.decode_fast(proof.kzg_k)
 
     t = Transcript()
     t.srs_hash()
@@ -238,6 +240,6 @@ def verify(trapdoor: Trapdoor, public_inputs: "list[int]", proof: Proof) -> bool
     )
     v0 = (trapdoor.tau - alpha) % fr.P * trapdoor.epsilon % fr.P
 
-    lhs = host.add(host.smul(v0, kzg_k), host.smul(u0, (host.GX, host.GY)))
+    lhs = host.add(host.smul_fast(v0, kzg_k), host.smul_fast(u0, (host.GX, host.GY)))
     valid_inputs = p_valid and k_valid and proof.a0_valid and proof.b0_valid
     return bool(lhs == commit_p) and valid_inputs

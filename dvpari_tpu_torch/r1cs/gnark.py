@@ -1,8 +1,8 @@
 """SP1/gnark sparse R1CS ingestion, SR1CS transform, sparse mat-vec.
 
-Counterpart of dvpari_tpu/r1cs/gnark.py.  The byte formats and the
-parsers are the JAX package's (numpy; its native row parser has no
-counterpart, the numpy one is the only path):
+Counterpart of dvpari_tpu/r1cs/gnark.py.  The byte formats are the JAX
+package's; rows parse in the port's native library (native.py:
+r1cs_parse_rows), and the numpy parser stays as its plain reference:
 
   R1CS dump (little-endian):
     u32 nbCoeffs; nbCoeffs x 32-byte big-endian field elements;
@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from dvpari_tpu_torch import native
 from dvpari_tpu_torch.device import resolve
 from dvpari_tpu_torch.ops import fr
 
@@ -162,13 +163,14 @@ def _parse_rows_numpy(data: bytes, rows_off: int):
 def instance_from_dump(data: bytes, num_public_inputs: int) -> R1CSInstance:
     """(reference: R1CSInstance::from_dump, src/gnark_r1cs.rs:282-296)
 
-    Coefficients convert to Fr limbs in bulk; rows parse with numpy."""
+    Coefficients convert to Fr limbs in bulk; rows parse in the native
+    library."""
     (n_coeffs,) = struct.unpack_from("<I", data, 0)
     raw = np.frombuffer(data, dtype=np.uint8, count=32 * n_coeffs, offset=4)
     coeff_limbs = _be32_to_loose_limbs(raw.reshape(n_coeffs, 32))
     rows_off = 4 + 32 * n_coeffs
 
-    counts, mats = _parse_rows_numpy(data, rows_off)
+    counts, mats = native.r1cs_parse_rows(data, rows_off)
     n_rows = len(counts)
     m = 1 if n_rows == 0 else 1 << (n_rows - 1).bit_length()
     return R1CSInstance(

@@ -27,12 +27,11 @@ import struct
 import numpy as np
 import torch
 
-from dvpari_tpu_torch import convert
+from dvpari_tpu_torch import convert, native
 from dvpari_tpu_torch.device import resolve
 from dvpari_tpu_torch.fftree.tree import FFTree
 from dvpari_tpu_torch.ops import fr, xsk233
 from dvpari_tpu_torch.ops import xsk233_bs as bs
-from dvpari_tpu_torch.utils import xsk233_host as host
 
 # --- artifact names (the JAX package's) ---------------------------------------
 SRS_G_Q = "g_q"
@@ -53,6 +52,7 @@ R1CS_WITNESS_FILE = "witness_to_dvsnark"
 
 FR_RECORD = 29  # ceil(232/8)
 PT_RECORD = 30
+IO_CHUNK = 1 << 20  # records decoded per native call
 
 
 # --- sidecar integrity (blake2b digests, as the JAX package) -----------------
@@ -141,8 +141,9 @@ def point_vec_len(path: str) -> int:
 def read_point_vec_planes(path: str) -> np.ndarray:
     """uint32 bit planes (3, 233, ceil(n/32)) of the point vector: the
     planes sidecar when fresh, else packed from a fresh `.fast.npz`
-    (JAX-written small vectors) or from the decoded, validated records,
-    and then cached as the sidecar."""
+    (JAX-written small vectors) or from the records, decoded and
+    validated in the native library (an invalid record raises), and then
+    cached as the sidecar."""
     pp = path + ".planes.npz"
     if os.path.exists(pp):
         z = np.load(pp)
@@ -157,15 +158,18 @@ def read_point_vec_planes(path: str) -> np.ndarray:
             data = f.read()
         (n,) = struct.unpack_from("<Q", data, 0)
         words = np.zeros((3, 8, n), dtype=np.uint32)
-        for j in range(n):
-            p, ok = host.decode(data[8 + j * PT_RECORD : 8 + (j + 1) * PT_RECORD])
-            assert ok, f"invalid point record {j} in {path}"
-            if p is not None:
-                for c, v in enumerate(p):
-                    words[c, :, j] = [(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
-                words[2, 0, j] = 1
-            else:
-                words[1, 0, j] = 1  # (0 : 1 : 0)
+        for s in range(0, n, IO_CHUNK):  # bounded decode buffers
+            e = min(s + IO_CHUNK, n)
+            try:
+                xy, inf = native.pt_decode_bulk(data[8 + s * PT_RECORD : 8 + e * PT_RECORD])
+            except ValueError as err:
+                raise ValueError(f"{path}: {err}") from None
+            for c in (0, 1):  # x, y: four u64 words -> eight u32 words
+                w64 = xy[:, 4 * c : 4 * c + 4].T
+                words[c, 0::2, s:e] = (w64 & 0xFFFFFFFF).astype(np.uint32)
+                words[c, 1::2, s:e] = (w64 >> 32).astype(np.uint32)
+            words[2, 0, s:e] = inf == 0
+            words[1, 0, s:e] |= inf  # infinity is (0 : 1 : 0)
     planes = bs.pack_points(words)
     _save_planes_sidecar(path, planes, _file_digest(path))
     return planes

@@ -17,14 +17,23 @@ libgmp is loaded via ctypes (no headers needed; the mpz ABI has been
 stable for decades).  Falls back to CPython's int multiply when libgmp
 is unavailable -- same math, slower.
 
-A copy of dvpari_tpu/utils/kronecker.py without its route through the
-JAX package's native library (the ctypes tree is the only path here).
+Counterpart of dvpari_tpu/utils/kronecker.py.  `vanishing_coeffs` is
+the ctypes tree and the plain reference; `vanishing_coeffs_limbs` runs
+the same tree in the port's native library (csrc/zpoly_native.cpp,
+OpenMP over the nodes of a level), which links the libgmp found here
+(`gmp_path`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import os
+
+import numpy as np
+import torch
+
+from dvpari_tpu_torch.ops import fr
 
 # 512 bits per coefficient slot.  A level multiply of reduced inputs
 # yields coefficients < (n/2 + 1) * p^2 ~ 2^(461.4 + log2 n): the slot
@@ -74,6 +83,20 @@ def _load_gmp():
         except OSError:
             continue
     return None
+
+
+def gmp_path() -> str:
+    """The file of the libgmp that _load_gmp() loaded, for the native
+    library to link; raises when there is none."""
+    if _load_gmp() is None:
+        raise RuntimeError("libgmp not found (libgmp.so.10, libgmp.so): the native "
+                           "vanishing-polynomial tree cannot be linked")
+    with open("/proc/self/maps") as f:
+        for line in f:
+            path = line.split()[-1]
+            if os.path.basename(path).startswith("libgmp.so"):
+                return path
+    raise RuntimeError("libgmp is loaded but its file is not in /proc/self/maps")
 
 
 def _mul_bytes_gmp(a: bytes, b: bytes, out_len: int) -> bytes:
@@ -137,3 +160,17 @@ def vanishing_coeffs(domain: "list[int]", p: int) -> "list[int]":
             nxt.append(nodes[-1])
         nodes = nxt
     return _unpack_reduce(nodes[0][0], n + 1, p)
+
+
+def vanishing_coeffs_limbs(leaf_limbs) -> np.ndarray:
+    """Fr limbs int32[20, n] (loose or canonical; array or tensor) ->
+    canonical coefficient limbs int32[20, n + 1] of prod (x - d_i),
+    through the native OpenMP tree, with the byte conversions done in
+    numpy at both ends (no python int per coefficient)."""
+    from dvpari_tpu_torch import native  # native imports this module
+
+    canon = fr.strong_normalize(torch.as_tensor(leaf_limbs, dtype=torch.int32).cpu())
+    out = native.zpoly_coeffs(fr.limbs_to_le_bytes(canon, 32), fr.P)
+    wide = fr.limbs_from_be_bytes(out[:, ::-1])  # (22, n + 1), each value < P
+    assert not wide[fr.NLIMB:].any()
+    return np.ascontiguousarray(wide[: fr.NLIMB])

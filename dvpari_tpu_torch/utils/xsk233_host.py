@@ -2,13 +2,15 @@
 the Koblitz curve y^2 + xy = x^3 + 1 over GF(2^233), cofactor 4,
 r = R = the Fr modulus.
 
-Counterpart of dvpari_tpu/utils/xsk233_host.py, without the native
-fast paths (smul_fast, decode_fast): the verifier decodes two points and
-runs two scalar multiplications here, in python ints.
+Counterpart of dvpari_tpu/utils/xsk233_host.py.  `smul_fast` and
+`decode_fast` run in the port's native library (dvpari_tpu_torch/
+native.py), which raises when it cannot be built: the verifier uses
+them, and `smul` and `decode` stay as their plain references.
 """
 
 from __future__ import annotations
 
+from dvpari_tpu_torch import native
 from dvpari_tpu_torch.utils import gf2_host as g
 
 # Subgroup order = Fr modulus.
@@ -65,6 +67,12 @@ def smul(k: int, p):
         p = add(p, p)
         k >>= 1
     return acc
+
+
+def smul_fast(k: int, p):
+    """smul() in the native library: [k]P for 0 <= k < 2^240, p affine
+    or None."""
+    return native.pt_smul(k, p)
 
 
 def encode(p) -> bytes:
@@ -126,3 +134,8 @@ def decode(data: bytes):
     if not is_on_curve(p) or not in_subgroup(p):
         return None, False
     return p, True
+
+
+def decode_fast(data: bytes):
+    """decode() in the native library: (point, is_valid)."""
+    return native.pt_decode(data)

@@ -12,7 +12,9 @@ rung(): synth_multiterm(2^LOG_M - 2) -- 4 terms a row, a 512-entry
 coefficient table, seed 7; with its two public-output rows m = 2^LOG_M
 constraints -- in a fresh temporary cache: setup, precompute, a cold
 prove and a warm prove of a second witness (chain start 5 in place of
-3), each proof verified, a tampered one rejected.  Setup and these two
+3), each proof verified, a tampered one rejected.  It records
+which path built the two trees of 2m leaves (the device build or the
+host chain, fftree/tree.py:FFTree.build).  Setup and these two
 proves run with their phases fenced by torch.cuda.synchronize()
 (utils/timing.py's SYNC_PHASES), for the per-phase split; the warm
 prove then runs FENCE_REPS times each without and with the fences,
@@ -164,6 +166,11 @@ def rung(log_m: int, device, log=print, profile: bool = False, record=None) -> d
                     lambda: srs.verifier_runs_setup(td, cache, 2, True, True, device=device))
             out["setup_phases"] = timing.summary()
             out["setup_launches"] = _launches()
+            built = [e for e in timing.EVENTS if e["phase"] in ("tree.device_build", "tree.host_build")]
+            paths = {e["phase"].split(".")[1].split("_")[0] for e in built}
+            if len(built) != 2 or len(paths) != 1:
+                raise AssertionError(f"setup built {len(built)} trees on paths {paths}, expected two on one")
+            out["tree_path"] = paths.pop()
             _reset()
             _, out["precompute_s"] = timed(
                 lambda: prover.prover_prepares_precomputes(cache, True, device=device))
@@ -268,6 +275,11 @@ def report(r: dict, tag: str, log=print) -> None:
             f"runs {[round(t, 4) for t in runs[0]]} and {[round(t, 4) for t in runs[1]]}) {tag}")
     for key in ("setup_phases", "cold_prove_phases", "warm_prove_phases"):
         log(f"e2e {key} " + json.dumps({k.split(".", 1)[1]: round(v, 4) for k, v in r[key].items()}))
+    setup, cold = r["setup_phases"], r["cold_prove_phases"]
+    log(f"e2e trees built on the {r['tree_path']} path: setup.tree {setup['setup.tree']:.3f} s, "
+        f"setup.vanishing {setup['setup.vanishing']:.3f} s, cold prove.load_tree "
+        f"{cold['prove.load_tree']:.3f} s, verify {r['verify_cold_ms']:.1f} / "
+        f"{r['verify_warm_ms']:.1f} ms {tag}")
     log("e2e launches " + json.dumps({k: r[k] for k in ("setup_launches", "cold_prove_launches",
                                                         "warm_prove_launches")})
         + (f", peak device memory {r['peak_device_gib']:.2f} GiB" if "peak_device_gib" in r else ""))

@@ -1,7 +1,10 @@
 """The port's FFTree (dvpari_tpu_torch/fftree) against the golden pins of
 tests/golden_n16.py (no JAX run), against the JAX package's FFTree on
-the same layers and random inputs made with numpy from a seed, and its
+the same layers and random inputs made with numpy from a seed (extend,
+enter, and the device build against the JAX host chain), and its
 Kronecker vanishing polynomial against the python-int product tree.
+(`exit` is held to the JAX tree's in tests/test_torch_exit.py, to keep
+each file under a minute on the CPU.)
 
 Tolerance: zero -- values are compared as canonical ints (or canonical
 limbs) and must be equal.
@@ -22,6 +25,7 @@ from dvpari_tpu_torch.fftree import precompute as pre
 from dvpari_tpu_torch.fftree import tree as tree_mod
 from dvpari_tpu_torch.fftree.tree import FFTree
 from dvpari_tpu_torch.ops import fr
+from dvpari_tpu_torch.utils import timing
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import golden_n16 as G  # noqa: E402
@@ -128,3 +132,24 @@ def test_kronecker_z_poly_matches_product_tree():
     leaves = fr.to_int(tree.leaves(1))
     assert got == tree_mod._host_vanishing_coeffs(leaves)
     assert len(got) == (1 << 13) + 1 and got[-1] == 1
+
+
+def test_device_build_matches_jax_host_chain(monkeypatch):
+    """32 leaves: the port's device build, run on the CPU, against the
+    JAX package's host chain layer for layer, in one chunk and in chunks
+    of 8 lanes; DVPARI_DEVICE_TREE_MIN picks the path."""
+    jt = JFFTree.build(32, False, 4, device=False)
+    want = [np.asarray(l) for l in jt.layers]
+    for chunk in (None, "8"):
+        if chunk:
+            monkeypatch.setenv("DVPARI_LAYER0_CHUNK", chunk)
+        tree = FFTree.build(32, False, 4, device="cpu", device_build=True)
+        assert len(tree.layers) == len(want) == 6 and tree.x0s == jt.x0s
+        for got, w in zip(tree.layers, want):
+            np.testing.assert_array_equal(got, fr.strong_normalize(torch.from_numpy(w)).numpy())
+    timing.reset()
+    FFTree.build(32, False, 4, device="cpu")
+    monkeypatch.setenv("DVPARI_DEVICE_TREE_MIN", "32")
+    FFTree.build(32, False, 4, device="cpu")
+    assert [e["phase"] for e in timing.EVENTS] == ["tree.host_build", "tree.device_build"]
+

@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone (no jax, nothing of dvpari_tpu; its own
+"""The PyTorch port stands alone (no jax, nothing of dvpari_tpu, and its
+native library is its own build, not the JAX package's; its own
 copies of the JAX package's pure-python recoder and host oracles equal
 the originals), refuses to fall back to the CPU, rejects malformed input
 at its entry points and pads ragged input, and carries the JAX package's
@@ -37,8 +38,10 @@ PORT_MODULES = [
     "dvpari_tpu_torch.device",
     "dvpari_tpu_torch.fftree",
     "dvpari_tpu_torch.fftree.aux_curve",
+    "dvpari_tpu_torch.fftree.device_build",
     "dvpari_tpu_torch.fftree.precompute",
     "dvpari_tpu_torch.fftree.tree",
+    "dvpari_tpu_torch.native",
     "dvpari_tpu_torch.ops",
     "dvpari_tpu_torch.ops.fr",
     "dvpari_tpu_torch.ops.gf2bs",
@@ -81,6 +84,11 @@ def test_port_imports_no_jax():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'dvpari_tpu' or k.startswith('dvpari_tpu.')]\n"
         "assert not bad, bad\n"
+        "from dvpari_tpu_torch import native\n"
+        "native.load()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'dvpari_tpu_torch/build/libdvpari_native_' in maps\n"
+        "assert 'dvpari_tpu/native' not in maps\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
