@@ -30,7 +30,22 @@ build, one add per column fold step and five in-word folds).  Every
 ladder and point-add launch of that setup and cold prove is then
 replayed on its own operands against its plain version, bit for bit.
 The kernels line's launches sum the counted main paths: the 2^18
-fan-out and MSMs, the 2^16 setup and both proves.
+fan-out and MSMs, the 2^16 setup and both proves, and the sharded
+proves below.
+
+Phase 9, the sharded prove (parallel/, protocol/prover.py:prove(group=)),
+in the rung's cache with no second setup: the warm witness proved over
+a one-rank NCCL world on the card in this process, and over two ranks
+that share the one card through gloo (NCCL takes one rank per card),
+spawned as two processes.  Every rank's proof must equal the rung's
+warm proof byte for byte and verify, and each rank's ladder and
+point-add launches must be what its column runs give.  Each of the two
+ranks' launches is then replayed on the warm prove's MSM operands,
+sliced by that rank's column run, against its plain version, and the
+ranks' partials must fold to the whole MSM.  The one-rank
+prove is timed in turns against the plain warm prove (the group path's
+cost at R = 1); the two-rank time is printed, but two ranks on one card
+measure correctness, not scaling.
 
 Before the protocol, two host-and-torch-op phases of the path: the
 native host backend (dvpari_tpu_torch/native.py, built with g++ beside
@@ -65,6 +80,7 @@ TREE_BIG_LOG_N = 22  # where the JAX package switches to its device build
 REPS = 3
 SEED = 7
 ORACLE_WORKERS = 6
+GROUP_RANKS = (1, 2)  # phase 9: a one-rank NCCL world, two gloo ranks on the one card
 
 SOURCE = "dvpari_tpu_torch/csrc/bs_ladder.cu"
 LADDER_TPU = "dvpari_tpu/ops/pallas_msm.py:33"  # _ladder_kernel
@@ -119,6 +135,7 @@ def main() -> int:
     from dvpari_tpu_torch.fftree import device_build as dbuild, tree as tree_mod
     from dvpari_tpu_torch.ops import fr, msm_kernel, xsk233
     from dvpari_tpu_torch.ops import xsk233_bs as bs
+    from dvpari_tpu_torch.parallel import mesh
     from dvpari_tpu_torch.utils import kronecker, roofline
     from dvpari_tpu_torch.utils import xsk233_host as host
 
@@ -484,7 +501,9 @@ def main() -> int:
 
     e2e_card.toy(dev, log)
     rung_ops = []  # operands of the fan-outs and MSMs of the rung's setup and cold prove
-    e2e = e2e_card.rung(E2E_LOG_M, dev, log, record=rung_ops)
+    warm_ops = []  # and of the warm prove's MSMs, which phase 9's ranks split
+    e2e = e2e_card.rung(E2E_LOG_M, dev, log, record=rung_ops, ranks=GROUP_RANKS,
+                        record_warm=warm_ops)
     e2e_card.report(e2e, tag, log)
     want_path = "device" if 2 * e2e["m"] >= tree_mod.device_tree_min() else "host"
     if e2e["tree_path"] != want_path:
@@ -504,6 +523,20 @@ def main() -> int:
     log(f"e2e launches equal the counts m = {m} and {n_wires} wires give: setup "
         f"{json.dumps(want['setup'])}, prove {json.dumps(want['prove'])}")
 
+    # -- phase 9: the sharded prove (run inside the rung, in its cache) -----
+    group = e2e["group"]
+    if (sorted(group) != sorted(GROUP_RANKS) or group[1]["backend"] != "nccl"
+            or group[2]["backend"] != "gloo"):
+        raise AssertionError(f"sharded phase ran {sorted(group)} on "
+                             f"{[g['backend'] for g in group.values()]}")
+    for R, g in sorted(group.items()):
+        for got in g["launches"]:  # each rank's, checked against its column runs in the rung
+            for name in launches:
+                launches[name] += got[name]
+        log(f"sharded prove over {R} rank(s) at m = 2^{E2E_LOG_M} ({g['backend']}): proof equals "
+            f"the warm proof on every rank and verifies; launches per rank "
+            f"{json.dumps(g['launches'])}")
+
     # replay every kernel launch of that setup and cold prove on its own
     # operands: each fan-out's ladder (shared table) and each MSM's table
     # build, ladder (per-column table) and fold steps
@@ -515,10 +548,15 @@ def main() -> int:
     replayed = {"ladder": 0, "point_add": 0}
     t0 = time.perf_counter()
 
-    def checked_add(p, q):
-        replayed["point_add"] += 1
-        return held("point_add", lambda: msm_kernel.point_add(p, q), lambda: bs.add(p, q),
-                    timed=False)
+    def counted_add(counts):
+        """The point add held to its plain version, counted in `counts`."""
+        def add(p, q):
+            counts["point_add"] += 1
+            return held("point_add", lambda: msm_kernel.point_add(p, q), lambda: bs.add(p, q),
+                        timed=False)
+        return add
+
+    checked_add = counted_add(replayed)
 
     for kind, scalars, pl in rung_ops:
         oh_r, ng_r, _ = xsk233.recode(scalars, dev)
@@ -542,6 +580,52 @@ def main() -> int:
         f"version on the same operands: {json.dumps(replayed)} (fan-out ladders at "
         f"{[-(-n // 32) for k, n in sizes if k == 'fan-out']} columns, MSMs at "
         f"{[-(-n // 32) for k, n in sizes if k == 'msm']}; {time.perf_counter() - t0:.1f} s)")
+
+    # replay each rank's launches of phase 9's worlds of more than one rank
+    # on the warm prove's MSM operands, sliced by the rank's column run
+    # (parallel/sharded.py:msm_limbs_sharded): its table build, ladder and
+    # folds, then the fold of the ranks' partials that every rank makes.
+    # A world of one runs the whole MSMs, at the shapes replayed above.
+    if [(k, int(sc.shape[-1])) for k, sc, _ in warm_ops] != want_sizes[-3:]:
+        raise AssertionError(f"warm prove called MSMs of {len(warm_ops)} sizes, expected "
+                             f"{want_sizes[-3:]}")
+    t0 = time.perf_counter()
+    for R in (R for R in GROUP_RANKS if R > 1):
+        runs = []
+        per_rank = [{"ladder": 0, "point_add": 0} for _ in range(R)]
+        for _, scalars, pl in warm_ops:
+            n = int(scalars.shape[-1])
+            parts = []
+            for r in range(R):
+                c0, c1 = mesh.col_run(-(-n // 32), R, r)
+                lo, hi = mesh.point_run(n, R, r)
+                runs.append(c1 - c0)
+                if c1 == c0:
+                    parts.append(torch.zeros((3, bs.M), dtype=torch.int32, device=dev))
+                    continue
+                oh_r, ng_r, _ = xsk233.recode(scalars[:, lo:hi], dev)
+                pl_r = pl[..., c0:c1].contiguous()
+                per_rank[r]["point_add"] += 1
+                tab_r = held("point_add", lambda: bs.tnaf_table(pl_r, add=msm_kernel.point_add),
+                             lambda: plain_table(pl_r), timed=False)
+                per_rank[r]["ladder"] += 1
+                lad_r = held("ladder", lambda: msm_kernel.ladder(oh_r, ng_r, tab_r),
+                             lambda: bs.ladder(oh_r, ng_r, tab_r), timed=False)
+                parts.append(bs.fold_sum(lad_r, add=counted_add(per_rank[r])))
+            for r in range(R):
+                folded = bs.fold_cols(torch.stack(parts, dim=-1), add=counted_add(per_rank[r]))
+            whole = xsk233.to_affine_int(xsk233.msm_limbs(scalars, pl, dev))
+            if xsk233.to_affine_int(bs.extract_point(folded, 0)) != whole:
+                raise AssertionError(f"{R} ranks' partials of the {n}-point MSM fold to another "
+                                     f"point than the whole MSM")
+        if per_rank != group[R]["launches"]:
+            raise AssertionError(f"replayed {per_rank} launches per rank, the {R} ranks made "
+                                 f"{group[R]['launches']}")
+        log(f"every kernel launch of the {R} ranks' prove equals its plain version on the same "
+            f"operands: {json.dumps(per_rank)} per rank (column runs {runs}, each rank also "
+            f"folding the {R} partials of each MSM); the folded partials equal the whole MSMs "
+            f"({time.perf_counter() - t0:.1f} s)")
+    del warm_ops
 
     # bounds count the doublings these operands ran (profiling build)
     costs = {"ladder": roofline.ladder_cost(C, C, prof["MSM 2^18"]["doubles_run"]),

@@ -4,10 +4,18 @@
     python -m dvpari_tpu_torch setup --cache-dir DIR --seed S
     python -m dvpari_tpu_torch prove --cache-dir DIR --witness-file W
     python -m dvpari_tpu_torch verify --seed S --proof P --public-input X ...
+    python -m dvpari_tpu_torch dryrun --ranks R [R ...] [--m 64]
 
 Counterpart of dvpari_tpu/__main__.py: e2e drives the toy circuit
 through setup -> precompute -> prove -> verify.  --device defaults to
 cuda and fails without it; pass --device cpu for the plain path.
+
+Under torchrun (`torchrun --nproc-per-node N -m dvpari_tpu_torch prove
+...`) every command first joins the process group that torchrun's
+environment describes (parallel/multihost.py:maybe_initialize; rank r
+on cuda:LOCAL_RANK, or on the CPU with --device cpu); `prove` then
+proves over the group and rank 0 alone writes the proof file.  dryrun
+spawns its own ranks (parallel/dryrun.py).
 """
 
 from __future__ import annotations
@@ -85,8 +93,18 @@ def _cmd_setup(args):
     print(f"setup complete in {time.time()-t0:.1f}s (cache: {args.cache_dir})")
 
 
+def _rank_device(args):
+    """The device of a torchrun rank: cuda:LOCAL_RANK (None) for --device
+    cuda, else the device named (verify, which has none: the CPU)."""
+    device = getattr(args, "device", "cpu")
+    return None if device == "cuda" else device
+
+
 def _cmd_prove(args):
+    import torch
+
     from dvpari_tpu_torch.ops import fr
+    from dvpari_tpu_torch.parallel import multihost
     from dvpari_tpu_torch.protocol import prover as prover_mod
     from dvpari_tpu_torch.r1cs import gnark
 
@@ -96,11 +114,18 @@ def _cmd_prove(args):
     assert head[0] == 1, "witness must start with the constant-1 wire"
     pub = head[1:]
     priv = wit[:, 1 + args.public_inputs :]  # stays as limbs
-    prover_mod.prover_prepares_precomputes(args.cache_dir, not args.no_validate, device=args.device)
+    group = multihost.group() if multihost.maybe_initialize() else None
+    dev = args.device if group is None else group.device
+    if group is None or group.rank == 0:
+        prover_mod.prover_prepares_precomputes(args.cache_dir, not args.no_validate, device=dev)
+    if group is not None:
+        torch.distributed.barrier(group=group.pg)
     t0 = time.time()
-    proof = prover_mod.prove(args.cache_dir, pub, priv, device=args.device)
-    print(f"prove: {time.time()-t0:.1f}s")
-    _write_proof(args.proof_out, proof)
+    proof = prover_mod.prove(args.cache_dir, pub, priv, device=dev, group=group)
+    where = "" if group is None else f" (rank {group.rank} of {group.size})"
+    print(f"prove: {time.time()-t0:.1f}s{where}")
+    if group is None or group.rank == 0:
+        _write_proof(args.proof_out, proof)
 
 
 def _cmd_verify(args):
@@ -112,6 +137,13 @@ def _cmd_verify(args):
     ok = srs_mod.verify(td, pub, proof)
     print(json.dumps({"valid": bool(ok)}))
     sys.exit(0 if ok else 1)
+
+
+def _cmd_dryrun(args):
+    from dvpari_tpu_torch.parallel import dryrun
+
+    for out in dryrun.dryrun(args.ranks, args.m, args.device):
+        print(json.dumps(out))
 
 
 def main(argv=None):
@@ -152,8 +184,33 @@ def main(argv=None):
     vf.add_argument("--public-input", nargs="+", required=True)
     vf.set_defaults(fn=_cmd_verify)
 
+    dr = sub.add_parser("dryrun", help="R spawned ranks prove an m-constraint circuit; "
+                        "the proof must equal the one-device proof and verify")
+    dr.add_argument("--ranks", type=int, nargs="+", required=True,
+                    help="world sizes to run, one setup for all")
+    dr.add_argument("--m", type=int, default=64, help="constraints, a power of two")
+    dr.add_argument("--device", default="cuda",
+                    help="cuda (rank r on cuda:r over NCCL, the default), or one device "
+                         "for every rank over gloo: cpu, or a card such as cuda:0")
+    dr.set_defaults(fn=_cmd_dryrun)
+
     args = p.parse_args(argv)
-    args.fn(args)
+    if args.cmd == "dryrun":  # dryrun spawns a world of its own
+        args.fn(args)
+        return
+    # torchrun's environment joins the command to its group; with none of
+    # it set this does nothing
+    from dvpari_tpu_torch.parallel import multihost
+
+    if not multihost.maybe_initialize(_rank_device(args)):
+        args.fn(args)
+        return
+    try:
+        if args.cmd != "prove" and multihost.group().size > 1:
+            raise SystemExit(f"{args.cmd} runs in one process; only prove runs over ranks")
+        args.fn(args)
+    finally:
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

@@ -69,15 +69,23 @@ def lagrange_basis_unified(tau, num_constraints: int, l_tau, l_taud, z_poly, z_p
     return torch.stack([even, odd], dim=-1).reshape(fr.NLIMB, 2 * m)
 
 
-def barycentric_eval3_at_alpha(domain, bar_wts, z_coeffs, pa, pb, pc, alpha):
-    """(a0, b0, i0, diff_inv): three barycentric evaluations at one alpha,
-    P(alpha) = Z(alpha) * sum_i y_i w_i / (alpha - d_i), sharing Z(alpha)
-    and the (alpha - d_i) batch inversion; diff_inv = 1/(alpha - d_i) is
-    returned for the k-scalars."""
-    z_alpha = fr.poly_eval(z_coeffs, alpha)
+def barycentric_sums3(domain, bar_wts, pa, pb, pc, alpha):
+    """(sums, diff_inv): sums int32[20, 3] holds sum_i y_i w_i / (alpha - d_i)
+    for y = pa, pb, pc over the given run of the domain, sharing the
+    (alpha - d_i) batch inversion; diff_inv = 1/(alpha - d_i) on that run
+    is returned for the k-scalars.  A sharded prove adds the runs' sums."""
     diff_inv = fr.batch_inverse(
         fr.sub(fr.broadcast_scalar(alpha, domain.shape[1:]), domain), axis=0
     )
     wd = fr.mul(bar_wts, diff_inv)
-    outs = tuple(fr.mul(z_alpha, fr.sum_along(fr.mul(p, wd), axis=0)) for p in (pa, pb, pc))
-    return outs + (diff_inv,)
+    sums = torch.stack([fr.sum_along(fr.mul(p, wd), axis=0) for p in (pa, pb, pc)], dim=-1)
+    return sums, diff_inv
+
+
+def barycentric_at_alpha(sums, z_coeffs, alpha):
+    """(a0, b0, i0) = Z(alpha) * sums: three barycentric evaluations at
+    one alpha, P(alpha) = Z(alpha) * sum_i y_i w_i / (alpha - d_i), from
+    the sums of barycentric_sums3 (the JAX package's
+    barycentric_eval3_at_alpha is the two in one)."""
+    z_alpha = fr.poly_eval(z_coeffs, alpha)
+    return tuple(fr.mul(z_alpha, s) for s in sums.unbind(dim=-1))

@@ -145,11 +145,11 @@ def recode(scalars, device="cuda"):
     return oh, ng, C
 
 
-def msm_limbs(scalars, planes, device="cuda") -> np.ndarray:
+def msm_partial(scalars, planes, device="cuda") -> torch.Tensor:
     """sum_i [k_i]P_i over Fr limb scalars int32[20, n] and bit-sliced
     points int32[3, 233, ceil(n/32)] (tensor; slots past n must be zero
-    planes or carry zero scalars).  Returns the word-layout point
-    uint32[3, 8]."""
+    planes or carry zero scalars), as (3, 233) planes on `device` with
+    the sum in bit 0 (ops/msm_kernel.py:msm_packed)."""
     dev = resolve(device)
     oh, ng, C = recode(scalars, dev)
     if not isinstance(planes, torch.Tensor) or planes.dtype != torch.int32:
@@ -159,7 +159,12 @@ def msm_limbs(scalars, planes, device="cuda") -> np.ndarray:
         raise ValueError(
             f"planes have shape {tuple(planes.shape)} for {C} columns of scalars"
         )
-    return bs.extract_point(msm_kernel.msm_packed(oh, ng, planes.contiguous()), 0)
+    return msm_kernel.msm_packed(oh, ng, planes.contiguous())
+
+
+def msm_limbs(scalars, planes, device="cuda") -> np.ndarray:
+    """msm_partial as the word-layout point uint32[3, 8]."""
+    return bs.extract_point(msm_partial(scalars, planes, device), 0)
 
 
 def mulgen_limbs(scalars, device="cuda") -> "tuple[np.ndarray, torch.Tensor]":

@@ -11,7 +11,16 @@ tensors of one device:
 
 The MSMs run through ops/xsk233.py:msm_limbs (the ladder kernel on
 CUDA) over the SRS planes, uploaded once per process; the commitment's
-one point add runs on the host.  Multi-device proving is not ported.
+one point add runs on the host.
+
+With a process group (prove(..., group=)), one prove runs over R ranks,
+as the JAX prover does over a mesh: the three MSMs shard their 32-point
+columns (parallel/sharded.py:msm_limbs_sharded, each rank reading only
+its columns of the SRS), and where the domain splits into R runs of R
+column blocks (sharded.can_shard_domain) the extend, quotient,
+barycentric sums and k-scalars run on each rank's run of the domain
+(the JAX package's domain-sharded layout).  The proof is byte-equal to
+the one-device proof on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from dvpari_tpu_torch.device import resolve
 from dvpari_tpu_torch.fftree import precompute as pre
 from dvpari_tpu_torch.fftree.tree import FFTree
 from dvpari_tpu_torch.ops import fr, xsk233
+from dvpari_tpu_torch.parallel import mesh, multihost, sharded
 from dvpari_tpu_torch.protocol.proof import Proof
 from dvpari_tpu_torch.protocol.srs import all_zero, load_or_build_tree
 from dvpari_tpu_torch.protocol.transcript import Transcript
@@ -137,10 +147,19 @@ def _prove_context(cache_dir: str, n_pubs: int, device):
     return ctx
 
 
-def prove(cache_dir: str, public_inputs: "list[int]", private_inputs, device="cuda") -> Proof:
+def prove(cache_dir: str, public_inputs: "list[int]", private_inputs, device=None,
+          group: "mesh.Group | None" = None) -> Proof:
     """Proof over the cached setup of `cache_dir`; private_inputs are
-    python ints or Fr limbs int32[20, n] (array or tensor)."""
-    dev = resolve(device)
+    python ints or Fr limbs int32[20, n] (array or tensor).  `device`
+    defaults to cuda; with a `group` the prove runs over its ranks on
+    each rank's device (group.device, which `device` must then equal or
+    leave unset) and every rank returns the same proof."""
+    if group is None:
+        dev = resolve(device or "cuda")
+    else:
+        dev = group.device
+        if device is not None and multihost.rank_device(device) != dev:
+            raise ValueError(f"device {device} is not the rank's device {dev}")
     with phase("prove.load_tree", dev):
         z_poly, tree2n, inst = _prove_context(cache_dir, len(public_inputs), dev)
         m = z_poly.shape[-1] - 1
@@ -155,6 +174,8 @@ def prove(cache_dir: str, public_inputs: "list[int]", private_inputs, device="cu
         w_dev = torch.cat([torch.from_numpy(head), priv.cpu()], dim=-1).to(dev)
         n_wires = int(w_dev.shape[-1])
 
+    # The matvec (~0.03 s at m = 2^16) runs whole on every rank; a
+    # domain-sharded prove then keeps each rank's run of its results.
     with phase("prove.matvec", dev):
         coeffs_dev = gnark.coeffs_device(inst, dev)
         a_vals = gnark.eval_matrix(inst.l, coeffs_dev, w_dev)
@@ -162,16 +183,36 @@ def prove(cache_dir: str, public_inputs: "list[int]", private_inputs, device="cu
         c_vals = gnark.eval_matrix(inst.o, coeffs_dev, w_dev)
         i_vals = _monomial_evals_over_domain(public_inputs, dom)
 
+    R = 1 if group is None else group.size
+    sharded_dom = group is not None and sharded.can_shard_domain(m, R)
+    lo, hi = mesh.dom_run(m, R, group.rank) if sharded_dom else (0, m)
+    if sharded_dom:
+        a_vals, b_vals, c_vals, i_vals = (v[:, lo:hi] for v in (a_vals, b_vals, c_vals, i_vals))
+
     with phase("prove.sat_check", dev):
-        # witness satisfaction: a*b == c + i on D
-        assert all_zero(fr.sub(fr.mul(a_vals, b_vals), fr.add(c_vals, i_vals))), (
-            "witness does not satisfy the SR1CS relation"
-        )
+        # witness satisfaction: a*b == c + i on D (on each rank's run)
+        ok = all_zero(fr.sub(fr.mul(a_vals, b_vals), fr.add(c_vals, i_vals)))
+        if sharded_dom:
+            ok = mesh.all_true(ok, group)
+        assert ok, "witness does not satisfy the SR1CS relation"
+
+    def msm(scalars, parts, n=None):
+        """MSM over the concatenation of point vector files [(path, len)];
+        with a group, `scalars` may be this rank's run of the n scalars."""
+        read = art.planes_reader(parts, dev)
+        if group is not None:
+            return sharded.msm_limbs_sharded(scalars, read, group, n)
+        return xsk233.msm_limbs(scalars, read(0, -(-sum(k for _, k in parts) // 32)), dev)
+
+    def to_point_run(pieces, layout, n):
+        """Domain-run pieces of an n-vector -> this rank's MSM run of it."""
+        want = [mesh.point_run(n, R, r) for r in range(R)]
+        return mesh.redistribute(pieces, layout, want, group)
 
     with phase("prove.msm_gm", dev, n=n_wires):
         gm_path = os.path.join(cache_dir, art.SRS_G_M)
         assert art.point_vec_len(gm_path) == n_wires
-        msm_gm = xsk233.msm_limbs(w_dev, art.read_point_vec_planes_device(gm_path, dev), dev)
+        msm_gm = msm(w_dev, [(gm_path, n_wires)])
         del w_dev
 
     transcript = Transcript()
@@ -180,12 +221,16 @@ def prove(cache_dir: str, public_inputs: "list[int]", private_inputs, device="cu
 
     with phase("prove.extend", dev, n=4 * m):
         # the four extends D -> D' as one batched pass
-        ext = tree2n.extend(torch.stack([a_vals, b_vals, c_vals, i_vals], dim=1), "S1", 0)
+        abci = torch.stack([a_vals, b_vals, c_vals, i_vals], dim=1)
+        if sharded_dom:
+            ext = sharded.extend_sharded(tree2n, abci, group)
+        else:
+            ext = tree2n.extend(abci, "S1", 0)
         a2, b2, c2, i2 = ext.unbind(dim=1)
-        del c_vals, ext
+        del c_vals, ext, abci
 
     with phase("prove.quotient", dev):
-        z2inv = art.read_fr_vec(os.path.join(cache_dir, art.Z_VALS2_INV), dev)
+        z2inv = art.read_fr_vec(os.path.join(cache_dir, art.Z_VALS2_INV), dev, (lo, hi))
         r2 = fr.sub(fr.mul(a2, b2), i2)
         q2 = fr.mul(fr.sub(r2, c2), z2inv)
         del a2, b2, c2, i2, z2inv
@@ -193,7 +238,11 @@ def prove(cache_dir: str, public_inputs: "list[int]", private_inputs, device="cu
     with phase("prove.msm_gq", dev, n=m):
         gq_path = os.path.join(cache_dir, art.SRS_G_Q)
         assert art.point_vec_len(gq_path) == m
-        msm_q = xsk233.msm_limbs(q2, art.read_point_vec_planes_device(gq_path, dev), dev)
+        if sharded_dom:
+            layout = [[(r * (hi - lo), hi - lo)] for r in range(R)]
+            msm_q = msm(to_point_run([q2], layout, m), [(gq_path, m)], m)
+        else:
+            msm_q = msm(q2, [(gq_path, m)])
         del q2
 
     commit = host.add(xsk233.to_affine_int(msm_q), xsk233.to_affine_int(msm_gm))
@@ -202,6 +251,7 @@ def prove(cache_dir: str, public_inputs: "list[int]", private_inputs, device="cu
     transcript.srs_hash()
 
     with phase("prove.challenge", dev):
+        # alpha against the whole of D and D' on every rank (one compare each)
         alpha = transcript.output()
         alpha_dev = torch.as_tensor(fr.from_int(alpha), device=dev)
         in_domain = any(
@@ -210,22 +260,37 @@ def prove(cache_dir: str, public_inputs: "list[int]", private_inputs, device="cu
         assert not in_domain, "challenge in domain (prob ~2^-200)"
 
     with phase("prove.evaluate_at_alpha", dev):
-        bar_wts = art.read_fr_vec(os.path.join(cache_dir, art.BAR_WTS), dev)
-        a0, b0, i0, diff_inv = pre.barycentric_eval3_at_alpha(
-            dom, bar_wts, z_poly, a_vals, b_vals, i_vals, alpha_dev
+        bar_wts = art.read_fr_vec(os.path.join(cache_dir, art.BAR_WTS), dev, (lo, hi))
+        sums, diff_inv = pre.barycentric_sums3(
+            dom[:, lo:hi], bar_wts, a_vals, b_vals, i_vals, alpha_dev
         )
+        if sharded_dom:  # the runs' sums, added in rank order
+            runs = mesh.all_gather(sums, group)
+            sums = runs[0]
+            for part in runs[1:]:
+                sums = fr.add(sums, part)
+        a0, b0, i0 = pre.barycentric_at_alpha(sums, z_poly, alpha_dev)
 
     with phase("prove.k_scalars", dev):
-        s_k_all = _k_scalars(dom2, a_vals, b_vals, i_vals, r2, a0, b0, i0, alpha_dev, diff_inv)
+        s_k = _k_scalars(dom2[:, lo:hi], a_vals, b_vals, i_vals, r2, a0, b0, i0, alpha_dev,
+                         diff_inv)
         del a_vals, b_vals, i_vals, r2
 
     with phase("prove.msm_gk", dev, n=4 * m):
         parts = []
         for name in (art.SRS_G_K_0, art.SRS_G_K_1, art.SRS_G_K_2):
             path = os.path.join(cache_dir, name)
-            parts.append((art.read_point_vec_planes_device(path, dev), art.point_vec_len(path)))
+            parts.append((path, art.point_vec_len(path)))
         assert sum(n for _, n in parts) == 4 * m, ([n for _, n in parts], m)
-        kzg_k = xsk233.msm_limbs(s_k_all, xsk233.concat_planes(parts), dev)
+        if sharded_dom:
+            # [k_a || k_b || k_r]: each rank holds k_a and k_b at its run
+            # and k_r (D and D' interleaved) at twice its run
+            w = hi - lo
+            layout = [[(r * w, w), (m + r * w, w), (2 * m + 2 * r * w, 2 * w)] for r in range(R)]
+            pieces = [s_k[:, :w], s_k[:, w : 2 * w], s_k[:, 2 * w :]]
+            kzg_k = msm(to_point_run(pieces, layout, 4 * m), parts, 4 * m)
+        else:
+            kzg_k = msm(s_k, parts)
 
     return Proof(
         commit_p=commit_p_bytes,

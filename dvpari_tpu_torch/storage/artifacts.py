@@ -23,6 +23,7 @@ from __future__ import annotations
 import hashlib
 import os
 import struct
+import zipfile
 
 import numpy as np
 import torch
@@ -88,8 +89,15 @@ def _sidecar_fresh(path: str, npz) -> bool:
 
 
 def _save_planes_sidecar(path: str, planes: np.ndarray, src: np.ndarray) -> None:
+    """Write the sidecar beside the file and rename it into place: ranks
+    that rebuild a missing sidecar at once each rename a whole file, and a
+    reader that mapped the old one keeps its inode."""
     payload = {"P": planes}
-    np.savez(path + ".planes.npz", SRC=src, SELF=_payload_digest(payload), **payload)
+    pp = path + ".planes.npz"
+    tmp = f"{pp}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, SRC=src, SELF=_payload_digest(payload), **payload)
+    os.replace(tmp, pp)
 
 
 # --- Fr vectors --------------------------------------------------------------
@@ -105,12 +113,18 @@ def write_fr_vec(path: str, values: torch.Tensor) -> None:
         f.write(recs.tobytes())
 
 
-def read_fr_vec(path: str, device="cuda") -> torch.Tensor:
-    """-> canonical limbs int32[20, n] on `device`."""
+def read_fr_vec(path: str, device="cuda", records=None) -> torch.Tensor:
+    """-> canonical limbs int32[20, n] on `device`; records=(lo, hi) reads
+    only those records."""
     with open(path, "rb") as f:
-        data = f.read()
-    (n,) = struct.unpack_from("<Q", data, 0)
-    raw = np.frombuffer(data, dtype=np.uint8, count=n * FR_RECORD, offset=8)
+        (total,) = struct.unpack("<Q", f.read(8))
+        lo, hi = records if records is not None else (0, total)
+        if not 0 <= lo <= hi <= total:
+            raise ValueError(f"{path}: records {lo}..{hi} of {total}")
+        f.seek(8 + lo * FR_RECORD)
+        data = f.read((hi - lo) * FR_RECORD)
+    n = hi - lo
+    raw = np.frombuffer(data, dtype=np.uint8, count=n * FR_RECORD)
     bits = np.unpackbits(raw.reshape(n, FR_RECORD), axis=1, bitorder="little")
     want = fr.NLIMB * fr.LIMB_BITS  # 240 > 232 stored bits: zero-pad the top
     bits = np.pad(bits, [(0, 0), (0, want - bits.shape[1])])
@@ -144,11 +158,12 @@ def read_point_vec_planes(path: str) -> np.ndarray:
     (JAX-written small vectors) or from the records, decoded and
     validated in the native library (an invalid record raises), and then
     cached as the sidecar."""
-    pp = path + ".planes.npz"
-    if os.path.exists(pp):
-        z = np.load(pp)
+    try:
+        z = np.load(path + ".planes.npz")
         if _sidecar_fresh(path, z):
             return z["P"]
+    except FileNotFoundError:
+        pass
     fast = path + ".fast.npz"
     z = np.load(fast) if os.path.exists(fast) else None
     if z is not None and _sidecar_fresh(path, z):
@@ -175,28 +190,118 @@ def read_point_vec_planes(path: str) -> np.ndarray:
     return planes
 
 
+def _npz_member(f, key: str) -> np.memmap:
+    """Array `key` of an uncompressed .npz (np.savez) open as `f`, mapped
+    from that file: slicing it reads only the pages the slice touches."""
+    with zipfile.ZipFile(f) as zf:
+        info = zf.getinfo(key + ".npy")
+    if info.compress_type != zipfile.ZIP_STORED:
+        raise ValueError(f"{f.name}: member {key} is compressed (np.savez writes it stored)")
+    f.seek(info.header_offset)
+    local = f.read(30)  # the zip local file header; name and extra follow
+    name_len, extra_len = struct.unpack("<HH", local[26:30])
+    f.seek(info.header_offset + 30 + name_len + extra_len)
+    version = np.lib.format.read_magic(f)
+    read_header = {(1, 0): np.lib.format.read_array_header_1_0,
+                   (2, 0): np.lib.format.read_array_header_2_0}[version]
+    shape, fortran, dtype = read_header(f)
+    return np.memmap(f, dtype=dtype, mode="r", offset=f.tell(), shape=shape,
+                     order="F" if fortran else "C")
+
+
+def _planes_sidecar_fresh_streamed(path: str, f, planes: np.memmap) -> bool:
+    """_sidecar_fresh for a planes sidecar open as `f`, hashing the mapped
+    payload a block at a time instead of loading it."""
+    f.seek(0)
+    z = np.load(f)  # members load lazily: only SRC and SELF are read here
+    if "SRC" not in z.files or "SELF" not in z.files or not os.path.exists(path):
+        return False
+    if not np.array_equal(z["SRC"], _file_digest(path)):
+        return False
+    h = hashlib.blake2b(digest_size=16)
+    flat = planes.reshape(-1)
+    for s in range(0, flat.shape[0], 1 << 22):
+        h.update(np.ascontiguousarray(flat[s : s + (1 << 22)]).tobytes())
+    return bool(np.array_equal(z["SELF"], np.frombuffer(h.digest(), dtype=np.uint8)))
+
+
+def read_point_vec_planes_cols(path: str, cols: "tuple[int, int]") -> np.ndarray:
+    """Columns [c0, c1) of read_point_vec_planes(path).  A fresh sidecar
+    is mapped, not loaded: its digests are checked by hashing the files
+    a block at a time, and only the slice is copied out, so host memory
+    holds the slice, not the vector.  The digests, the header and the
+    mapping all come from one open file, which a concurrent rebuild
+    (renamed into place) does not change.  A missing or stale sidecar is
+    first rebuilt from the records, whole, by read_point_vec_planes."""
+    planes = None
+    try:
+        with open(path + ".planes.npz", "rb") as f:
+            planes = _npz_member(f, "P")
+            if not _planes_sidecar_fresh_streamed(path, f, planes):
+                planes = None
+    except FileNotFoundError:
+        pass
+    if planes is None:
+        planes = read_point_vec_planes(path)
+    c0, c1 = cols
+    if not 0 <= c0 <= c1 <= planes.shape[-1]:
+        raise ValueError(f"{path}: columns {c0}..{c1} of {planes.shape[-1]}")
+    return np.ascontiguousarray(planes[:, :, c0:c1])
+
+
 # Device-resident planes: the SRS is a fixed per-circuit artifact, so each
-# vector is uploaded once per process.  Keyed by (path, sidecar mtime);
-# a rewritten artifact drops its stale upload.
+# vector (or column slice of one) is uploaded once per process.  Keyed by
+# (path, sidecar mtime, device, columns); a rewritten artifact drops its
+# stale uploads.
 _PLANES_DEVICE_CACHE: "dict[tuple, torch.Tensor]" = {}
 
 
-def read_point_vec_planes_device(path: str, device="cuda") -> torch.Tensor:
-    """read_point_vec_planes as an int32 tensor on `device`, cached."""
+def read_point_vec_planes_device(path: str, device="cuda", cols=None) -> torch.Tensor:
+    """read_point_vec_planes as an int32 tensor on `device`, cached;
+    cols=(c0, c1) puts only those columns on the device
+    (read_point_vec_planes_cols)."""
     dev = resolve(device)
     pp = path + ".planes.npz"
     mtime = os.path.getmtime(pp) if os.path.exists(pp) else None
-    key = (os.path.abspath(path), mtime, str(dev))
+    key = (os.path.abspath(path), mtime, str(dev), cols)
     hit = _PLANES_DEVICE_CACHE.get(key)
     if hit is not None:
         return hit
-    for k in [k for k in _PLANES_DEVICE_CACHE if k[0] == key[0]]:
+    for k in [k for k in _PLANES_DEVICE_CACHE if k[0] == key[0] and k[1] != mtime]:
         del _PLANES_DEVICE_CACHE[k]
-    arr = convert.planes_from_numpy(read_point_vec_planes(path), dev)
+    host = read_point_vec_planes(path) if cols is None else read_point_vec_planes_cols(path, cols)
+    arr = convert.planes_from_numpy(host, dev)
     if mtime is None:  # the sidecar was written just now
-        key = (key[0], os.path.getmtime(pp), key[2])
+        key = (key[0], os.path.getmtime(pp), key[2], cols)
     _PLANES_DEVICE_CACHE[key] = arr
     return arr
+
+
+def planes_reader(parts, device):
+    """The prover's SRS reader: read(c0, c1) gives columns [c0, c1) of the
+    bit planes of one point vector [(path, n)] or of the concatenation of
+    several (the g_k segments) on `device`.  Each file contributes the
+    columns the range needs, read alone (read_point_vec_planes_device,
+    cached); segments that are not 32-point aligned are joined slot by
+    slot, as xsk233.concat_planes joins the whole vectors."""
+    offs = np.cumsum([0] + [n for _, n in parts]).tolist()
+    aligned = all(n % 32 == 0 for _, n in parts[:-1])
+
+    def read(c0: int, c1: int) -> torch.Tensor:
+        lo, hi = 32 * c0, min(32 * c1, offs[-1])
+        got = []
+        for (path, n), o in zip(parts, offs):
+            a, b = max(lo, o) - o, min(hi, o + n) - o  # this segment's points
+            if a >= b:
+                continue
+            cols = None if (a, b) == (0, n) else (a // 32, -(-b // 32))  # whole: one cache entry
+            pl = read_point_vec_planes_device(path, device, cols)
+            got.append(pl if aligned else xsk233.slot_bits(pl, b - (a // 32) * 32)[..., a % 32:])
+        if aligned:
+            return got[0] if len(got) == 1 else torch.cat(got, dim=-1)
+        return xsk233.pack_slot_bits(torch.cat(got, dim=-1))
+
+    return read
 
 
 # --- FFTrees -----------------------------------------------------------------

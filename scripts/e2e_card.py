@@ -2,7 +2,7 @@
 """The port's end-to-end path -- setup -> precompute -> prove -> verify --
 on one GPU, timed by phase.
 
-    python3 scripts/e2e_card.py [LOG_M] [--device cuda|cpu]
+    python3 scripts/e2e_card.py [LOG_M] [--device cuda|cpu] [--ranks R ...]
 
 toy(): the 5-constraint toy circuit with trapdoor seed b"dvpari-toy-43";
 its proof must equal TOY_PROOF_HEX (read from tests/golden_n16.py),
@@ -21,7 +21,19 @@ prove then runs FENCE_REPS times each without and with the fences,
 alternating, for the end-to-end time and the fences' cost.  The ladder
 and point-add launches are counted per setup and per prove.  Given a
 list, rung() also keeps the operands of every fan-out and MSM that
-setup and the cold prove call, for a caller to replay the kernels on.
+setup and the cold prove call, for a caller to replay the kernels on;
+given another (record_warm), those of the warm prove's MSMs, which the
+group proves below split between their ranks.
+
+With ranks (--ranks R), rung() then proves the second witness over a
+process group of R ranks (protocol/prover.py:prove(group=)) in the same
+cache, with no second setup: R = 1 is a world of one in this process
+(NCCL on a card, gloo on the CPU), timed in turns against the plain
+warm prove; R > 1 spawns R ranks that share the rung's device through
+gloo, each proving twice (cold, then warm).  Every rank's proof must
+equal the warm proof byte for byte and verify, and on a card each
+rank's ladder and point-add launches must be what its column runs give
+(group_launches).
 
 chip_smoke.py runs both; run alone, the script also proves the second
 witness once more under torch.profiler (on CUDA) for the device's busy
@@ -45,6 +57,7 @@ if ROOT not in sys.path:
 TOY_SEED = b"dvpari-toy-43"
 RUNG_SEED = b"dvpari-e2e-rung"
 FENCE_REPS = 5
+GROUP_REPS = 3  # turns of plain and one-rank group proves
 
 
 def _golden_toy_hex() -> str:
@@ -125,7 +138,88 @@ def _recording(ops):
         xsk233.msm_limbs, xsk233.mulgen_limbs = msm, mulgen
 
 
-def rung(log_m: int, device, log=print, profile: bool = False, record=None) -> dict:
+def group_launches(ns, R: int, r: int) -> dict:
+    """Rank r's kernel launches in one prove over R ranks, whose MSMs
+    cover ns points (parallel/sharded.py:msm_limbs_sharded): per MSM with
+    a non-empty column run of C columns one ladder and 1 + ceil(log2 C)
+    + 5 point adds (table, column folds, in-word folds), and for every
+    MSM ceil(log2 R) point adds folding the ranks' partials."""
+    from dvpari_tpu_torch.parallel import mesh
+
+    out = {"ladder": 0, "point_add": 0}
+    for n in ns:
+        c0, c1 = mesh.col_run(-(-n // 32), R, r)
+        if c1 > c0:
+            out["ladder"] += 1
+            out["point_add"] += 1 + (c1 - c0 - 1).bit_length() + 5
+        out["point_add"] += (R - 1).bit_length()
+    return out
+
+
+def group_proves(cache, pub, priv, want_proof, td, device, ranks, ns, log=print) -> dict:
+    """The prove of (pub, priv) over process groups of each size in
+    `ranks` (see the module's docstring); want_proof is the plain
+    prove's proof of the same witness, ns the MSMs' point counts."""
+    import torch
+
+    from dvpari_tpu_torch.parallel import dryrun, multihost
+    from dvpari_tpu_torch.protocol import prover, srs
+    from dvpari_tpu_torch.protocol.proof import Proof, _bytes_to_bits_le
+    from dvpari_tpu_torch.utils import timing
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    want = dryrun.proof_hex(want_proof)
+    out = {}
+    for R in ranks:
+        if R == 1:
+            g = multihost.initialize(0, 1, "127.0.0.1", multihost.free_port(), dev)
+            try:
+                res = [dryrun.rank_prove(g, cache, pub, priv)]
+                sync_was, timing.SYNC_PHASES = timing.SYNC_PHASES, False
+                turns = {"plain": [], "group": []}
+                try:
+                    for _ in range(GROUP_REPS):
+                        for kind in ("plain", "group"):
+                            if cuda:
+                                torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            prover.prove(cache, pub, priv, device=g.device,
+                                         group=g if kind == "group" else None)
+                            if cuda:
+                                torch.cuda.synchronize()
+                            turns[kind].append(time.perf_counter() - t0)
+                finally:
+                    timing.SYNC_PHASES = sync_was
+            finally:
+                multihost.shutdown()
+            rec = {"backend": g.backend, "plain_prove_runs_s": turns["plain"],
+                   "group_prove_runs_s": turns["group"]}
+        else:
+            res = multihost.run_ranks(R, dryrun.rank_prove, (cache, pub, priv, 2), str(dev))
+            rec = {"backend": res[0]["backend"], "warm_prove_s": [r["prove_s"][-1] for r in res],
+                   "cold_prove_s": [r["prove_s"][0] for r in res]}
+        bad = [r["rank"] for r in res if r["proof"] != want]
+        if bad:
+            raise AssertionError(f"ranks {bad} of {R}: proof != the plain warm proof")
+        proof = Proof.from_bits(_bytes_to_bits_le(bytes.fromhex(res[0]["proof"]))[:944])
+        if not srs.verify(td, pub, proof):
+            raise AssertionError(f"verify rejected the proof over {R} ranks")
+        rec["launches"] = [r["launches"] for r in res]
+        if cuda:
+            for r in res:
+                exp = group_launches(ns, R, r["rank"])
+                if r["launches"] != exp:
+                    raise AssertionError(f"rank {r['rank']} of {R} launched {r['launches']}, its "
+                                         f"column runs give {exp}")
+        out[R] = rec
+        log(f"group prove over {R} rank(s) ({rec['backend']}, {dev}): every rank's proof equals "
+            f"the plain warm proof and verifies; launches per rank {json.dumps(rec['launches'])}")
+    return out
+
+
+def rung(log_m: int, device, log=print, profile: bool = False, record=None, ranks=(),
+         record_warm=None) -> dict:
     import torch
 
     from dvpari_tpu_torch.protocol import prover, srs
@@ -177,7 +271,7 @@ def rung(log_m: int, device, log=print, profile: bool = False, record=None) -> d
             proofs = []
             for name, p, w in (("cold", pub, priv), ("warm", pub2, priv2)):
                 _reset()
-                with _recording(record if name == "cold" else None):
+                with _recording(record if name == "cold" else record_warm):
                     proof, out[f"{name}_prove_s"] = timed(
                         lambda: prover.prove(cache, p, w, device=device))
                 out[f"{name}_prove_phases"] = timing.summary()
@@ -193,6 +287,9 @@ def rung(log_m: int, device, log=print, profile: bool = False, record=None) -> d
                 out["warm_prove_unfenced_runs_s"] = runs[False]
                 out["warm_prove_fenced_runs_s"] = runs[True]
                 timing.SYNC_PHASES = True
+            if ranks:
+                out["group"] = group_proves(cache, pub2, priv2, proofs[1][1], td, device, ranks,
+                                            [out["n_wires"], m, 4 * m], log)
             if profile:
                 out["profiled_warm_prove"] = profiled_prove(cache, pub2, priv2, device, log)
     finally:
@@ -283,6 +380,18 @@ def report(r: dict, tag: str, log=print) -> None:
     log("e2e launches " + json.dumps({k: r[k] for k in ("setup_launches", "cold_prove_launches",
                                                         "warm_prove_launches")})
         + (f", peak device memory {r['peak_device_gib']:.2f} GiB" if "peak_device_gib" in r else ""))
+    for R, g in r.get("group", {}).items():
+        if R == 1:
+            runs = [g["plain_prove_runs_s"], g["group_prove_runs_s"]]
+            log(f"e2e warm prove, plain {statistics.median(runs[0]):.4f} s against over a one-rank "
+                f"group ({g['backend']}) {statistics.median(runs[1]):.4f} s (medians of "
+                f"{GROUP_REPS} each, in turns; runs {[round(t, 4) for t in runs[0]]} and "
+                f"{[round(t, 4) for t in runs[1]]}) {tag}")
+        else:
+            log(f"e2e prove over {R} ranks sharing one device ({g['backend']}): warm "
+                f"{[round(t, 4) for t in g['warm_prove_s']]} s, cold "
+                f"{[round(t, 4) for t in g['cold_prove_s']]} s per rank; ranks on one device "
+                f"measure correctness, not scaling {tag}")
 
 
 def main(argv) -> int:
@@ -294,6 +403,14 @@ def main(argv) -> int:
     if "--device" in argv:
         device = argv[argv.index("--device") + 1]
         argv = [a for a in argv if a not in ("--device", device)]
+    ranks = ()
+    if "--ranks" in argv:
+        i = argv.index("--ranks")
+        j = i + 1
+        while j < len(argv) and argv[j].isdigit():
+            j += 1
+        ranks = tuple(int(a) for a in argv[i + 1 : j])
+        argv = argv[:i] + argv[j:]
     log_m = int(argv[0]) if argv else 16
     tag = ""
     if device == "cuda":
@@ -305,7 +422,7 @@ def main(argv) -> int:
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout.strip().splitlines()[0] + "]"
     toy(device)
-    r = rung(log_m, device, profile=device == "cuda")
+    r = rung(log_m, device, profile=device == "cuda", ranks=ranks)
     report(r, tag)
     print(json.dumps({"card": tag, **r}), flush=True)
     return 0

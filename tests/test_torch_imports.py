@@ -50,6 +50,11 @@ PORT_MODULES = [
     "dvpari_tpu_torch.ops.tnaf_device",
     "dvpari_tpu_torch.ops.xsk233",
     "dvpari_tpu_torch.ops.xsk233_bs",
+    "dvpari_tpu_torch.parallel",
+    "dvpari_tpu_torch.parallel.dryrun",
+    "dvpari_tpu_torch.parallel.mesh",
+    "dvpari_tpu_torch.parallel.multihost",
+    "dvpari_tpu_torch.parallel.sharded",
     "dvpari_tpu_torch.protocol",
     "dvpari_tpu_torch.protocol.proof",
     "dvpari_tpu_torch.protocol.prover",
