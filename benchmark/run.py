@@ -1,0 +1,63 @@
+#!/usr/bin/env python3
+"""The port's benchmark: one run of one cell.
+
+    python3 benchmark/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
+
+Run from the root of a checkout (BENCHMARK.json beside this folder) on a
+machine with CUDA; it refuses to run without a card.  Prints progress
+and the compared numbers on standard error and one JSON object as the
+last line of standard output (see benchmark/harness.py).
+"""
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import sys  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# every build and kernel cache at a fixed path inside the checkout
+CACHE = os.path.join(ROOT, ".bench_cache")
+os.environ["TORCH_EXTENSIONS_DIR"] = os.path.join(CACHE, "torch_extensions")
+os.environ["TRITON_CACHE_DIR"] = os.path.join(CACHE, "triton")
+os.environ["USE_FLAX"] = "0"
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from benchmark import harness
+
+    chips = harness.load_cell(ROOT, args.workload)["cell"]["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"run: needs {chips} CUDA device(s); torch.cuda.is_available() is "
+              f"{torch.cuda.is_available()}, device_count() {torch.cuda.device_count()}",
+              file=sys.stderr)
+        return 2
+    out = harness.run_cell(ROOT, args.workload, args.seed, args.seconds, bool(args.trace),
+                           device="cuda", t_start=T_START)
+    bad = harness.forbidden_modules()
+    if bad:
+        print(f"run: the process holds {bad} after the window", file=sys.stderr)
+        return 3
+    print(f"correct {out['correct']}", file=sys.stderr)
+    for name, c in out["checks"].items():
+        print(f"check {name} {c['value']} limit {c['limit']}", file=sys.stderr, flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
