@@ -22,13 +22,17 @@ TOP = 10
 
 
 def from_profiler(prof, phases) -> list:
-    """The profiler's events as summarize() takes them."""
+    """The profiler's events as summarize() takes them.  The profiler's
+    own "nccl:<collective>" ranges on the device timeline are left out:
+    they wrap NCCL's kernels, which are counted."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
     out = []
     for e in prof.events():
         t0, t1 = e.time_range.start, e.time_range.end
+        if e.device_type == cuda and e.key.startswith("nccl:"):
+            continue
         if e.device_type == cuda:
             out.append(("device_range" if e.key in phases else "device", e.key, t0, t1))
         elif e.key in phases:

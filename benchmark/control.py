@@ -8,12 +8,13 @@ configuration states: alpha is drawn from the public inputs alone,
 before the commitment (a prover that overlapped the barycentric stage
 with the MSMs this way would lose Fiat-Shamir's soundness).  The run is
 the harness's own (benchmark/harness.py:run_cell): the same inputs,
-drive, comparison and result line, with `prover.prove` returning the
-control's proof of the witness it is given.  The program's set-up is
-left out, since the reference needs none.  For each seed it prints the
-compared numbers beside their limits on standard error and the result
-line on standard output; `correct` has to read false.  The benchmark's
-own runs do not run it.
+drive, comparison and result line, with `ControlProve` handed in as the
+prove, so that on a cell over several ranks every rank imports it and
+returns the control's proof.  The program's set-up is left out, since
+the reference needs none.  For each seed it prints the compared numbers
+beside their limits on standard error and the result line on standard
+output; `correct` has to read false.  The benchmark's own runs do not
+run it.
 """
 
 import json
@@ -25,39 +26,53 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 
+class ControlProve:
+    """prover.prove's signature: the control's proof of the witness it is
+    given, for the circuit and trapdoor of (root, workload, seed), which
+    it makes again from the seed in the process that calls it."""
+
+    def __init__(self, root: str, workload: str, seed: int):
+        self.args = (root, workload, seed)
+        self._made = None
+
+    def __call__(self, cache_dir, public_inputs, private_inputs, device=None, group=None):
+        from dvpari_tpu_torch.protocol.proof import Proof
+
+        from benchmark import harness
+        from benchmark.reference.domain import Domain
+        from benchmark.reference.prover import expected_proof
+
+        if self._made is None:
+            root, workload, seed = self.args
+            inp = harness.make_inputs(harness.load_cell(root, workload), seed)
+            self._inp, self._domain, self._made = inp, Domain(inp["circuit"].m), {}
+        key = (tuple(public_inputs), private_inputs.tobytes())
+        if key not in self._made:
+            vals = [1, *public_inputs, *harness.unlimbs(private_inputs)]
+            e = expected_proof(self._domain, self._inp["circuit"], vals, self._inp["trapdoor"],
+                               bind_challenge=False)
+            self._made[key] = Proof(e.commit_p, e.kzg_k, e.a0, e.b0)
+        return self._made[key]
+
+
+def _no_setup(trapdoor, cache, device) -> None:
+    """The reference needs no set-up."""
+
+
 def control_run(root: str, workload: str, seed: int, seconds: float,
                 device: str = "cuda") -> dict:
     """harness.run_cell with the control in the program's place."""
-    from dvpari_tpu_torch.protocol import prover, srs
-    from dvpari_tpu_torch.protocol.proof import Proof
-
     from benchmark import harness
-    from benchmark.reference.domain import Domain
-    from benchmark.reference.prover import expected_proof
 
-    inp = harness.make_inputs(harness.load_cell(root, workload), seed)
-    circuit, trapdoor = inp["circuit"], inp["trapdoor"]
-    domain, made = Domain(circuit.m), {}
-
-    def prove(cache_dir, public_inputs, private_inputs, device=None, group=None):
-        key = (tuple(public_inputs), private_inputs.tobytes())
-        if key not in made:
-            vals = [1, *public_inputs, *harness.unlimbs(private_inputs)]
-            e = expected_proof(domain, circuit, vals, trapdoor, bind_challenge=False)
-            made[key] = Proof(e.commit_p, e.kzg_k, e.a0, e.b0)
-        return made[key]
-
-    real = (prover.prove, srs.verifier_runs_setup, prover.prover_prepares_precomputes)
-    prover.prove = prove
-    srs.verifier_runs_setup = prover.prover_prepares_precomputes = lambda *a, **k: None
-    try:
-        return harness.run_cell(root, workload, seed, seconds, False, device=device)
-    finally:
-        prover.prove, srs.verifier_runs_setup, prover.prover_prepares_precomputes = real
+    return harness.run_cell(root, workload, seed, seconds, False, device=device,
+                            prove=ControlProve(root, workload, seed), setup=_no_setup)
 
 
 def main(argv) -> int:
     import argparse
+
+    # by its package's name, so that ranks can import ControlProve
+    from benchmark.control import control_run as run
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -65,7 +80,7 @@ def main(argv) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     args = ap.parse_args(argv)
     for seed in args.seeds:
-        out = control_run(ROOT, args.workload, seed, args.seconds)
+        out = run(ROOT, args.workload, seed, args.seconds)
         print(f"control seed {seed} correct {out['correct']}", file=sys.stderr)
         for name, c in out["checks"].items():
             print(f"check {name} {c['value']} limit {c['limit']}", file=sys.stderr, flush=True)

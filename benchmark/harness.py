@@ -18,10 +18,17 @@ precomputes in a fresh cache directory, one cold prove, its verify);
 the window, driven by the traffic's drive; with trace=1 the phases
 fenced and one more prove under torch.profiler; then the check of every
 proof the program made against the plain reference.
+
+A configuration that states "ranks": R > 1 proves over R processes of
+one world, one card each (benchmark/ranks.py): the set-up stays in this
+process on one card, the cold prove and every later one run on the
+ranks through the program's prove(group=), and every rank's proof is
+checked.  Its cell has to ask for R chips.
 """
 
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
 import os
@@ -35,12 +42,18 @@ from types import SimpleNamespace
 import numpy as np
 
 from benchmark import attribution
+from benchmark.ranks import Ranks
 from benchmark.reference.domain import Domain
 from benchmark.reference.fr import P
 from benchmark.reference.prover import expected_proof
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "dvpari_tpu")
 N_PUBLIC = 2
+
+
+class ForbiddenModules(RuntimeError):
+    """A rank held a module the run may not hold (FORBIDDEN) once the
+    window had closed."""
 
 
 def _load_module(path: str, name: str):
@@ -62,6 +75,9 @@ def load_cell(root: str, workload: str) -> dict:
     cfg_entry = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     with open(os.path.join(root, cfg_entry["file"])) as f:
         config = json.load(f)
+    if cell["chips"] != config.get("ranks", 1):
+        raise ValueError(f"{workload} asks for {cell['chips']} chips, but {cell['config']} "
+                         f"states {config.get('ranks', 1)} rank(s)")
     with open(os.path.join(root, "benchmark", "traffic", cell["traffic"] + ".json")) as f:
         traffic = json.load(f)
     drive = _load_module(os.path.join(root, "benchmark", "drives", traffic["drive"] + ".py"),
@@ -135,9 +151,31 @@ def _proof_key(p) -> tuple:
     return (bytes(p.commit_p), bytes(p.kzg_k), int(p.a0), int(p.b0))
 
 
+def program_setup(trapdoor, cache: str, device) -> None:
+    """The program's set-up into `cache`: the verifier's SRS setup and the
+    prover's precomputes."""
+    from dvpari_tpu_torch.protocol import prover, srs
+
+    srs.verifier_runs_setup(trapdoor, cache, N_PUBLIC, True, True, device=device)
+    prover.prover_prepares_precomputes(cache, True, device=device)
+
+
+def rank0_points(n: int, ranks: int) -> int:
+    """The points of an n-point MSM on rank 0 when `ranks` ranks split its
+    32-point columns ceil(C/R) a rank (the split of the program's
+    parallel/mesh.py:point_run)."""
+    cols = -(-n // 32)
+    return min(n, 32 * -(-cols // ranks))
+
+
 def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
-             device: str = "cuda", t_start: "float | None" = None, log=None) -> dict:
-    """One run: the result line's fields."""
+             device: str = "cuda", t_start: "float | None" = None, log=None,
+             prove=None, setup=program_setup) -> dict:
+    """One run: the result line's fields.  `prove` (prover.prove's
+    signature, the program's by default) and `setup(trapdoor, cache,
+    device)` are what is under test, so that the control can stand in for
+    the program; `prove` pickles by its import path, since every rank of
+    a cell on more than one chip imports it."""
     import torch
 
     from dvpari_tpu_torch.protocol import prover, srs
@@ -147,42 +185,62 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
 
     log = log or (lambda s: print(s, file=sys.stderr, flush=True))
     t_start = time.perf_counter() if t_start is None else t_start
+    prove_fn = prove or prover.prove
     cuda = torch.device(device).type == "cuda"
     cell = load_cell(root, workload)
-    card = card_info() if cuda else {}
-    inp = make_inputs(cell, seed)
-    circuit, pool = inp["circuit"], inp["pool"]
-    pubs = [v[1:1 + N_PUBLIC] for v in pool]
-    privs = [limbs(v[1 + N_PUBLIC:]) for v in pool]
-    td = srs.Trapdoor(*inp["trapdoor"])
-    rec = {"m": circuit.m, "n_wires": len(pool[0]), "card": card}
-    outputs = []  # (pool index, proof) of every proof the program made
-    phases = []  # the phases of each proof the window made
-    timing.reset()
-    sync_was = timing.SYNC_PHASES
-    timing.SYNC_PHASES = bool(trace)
+    n_ranks = cell["cell"]["chips"]
+    ranks = Ranks(n_ranks, None if cuda else device) if n_ranks > 1 else None
     cache = tempfile.mkdtemp(prefix="dvpari-bench-")
-
-    def prove(j):
-        timing.reset()
-        proof = prover.prove(cache, pubs[j], privs[j], device=device)
-        phases.append(timing.summary())
-        outputs.append((j, proof))
-        return proof
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
-
+    sync_was = timing.SYNC_PHASES
     try:
+        if ranks:  # they import while this process makes the inputs and sets up
+            ranks.start()
+        card = card_info() if cuda else {}
+        inp = make_inputs(cell, seed)
+        circuit, pool = inp["circuit"], inp["pool"]
+        pubs = [v[1:1 + N_PUBLIC] for v in pool]
+        privs = [limbs(v[1 + N_PUBLIC:]) for v in pool]
+        td = srs.Trapdoor(*inp["trapdoor"])
+        rec = {"m": circuit.m, "n_wires": len(pool[0]), "card": card}
+        outputs = []  # (pool index, proof) of every proof the program made, on every rank
+        phases = []  # the phases of each proof the window made (rank 0's)
+        rank_peaks = []  # each rank's peak device bytes, from its latest answer
+        timing.reset()
+        timing.SYNC_PHASES = bool(trace)
+
+        if ranks:
+            answers = ranks.prove
+        else:
+            def answers(j, profile=False):
+                return [answer(lambda: prove_fn(cache, pubs[j], privs[j], device=device), profile,
+                               cuda)]
+
+        def prove_one(j, profile=False):
+            outs = answers(j, profile)
+            outputs.extend((j, o["proof"]) for o in outs)
+            phases.append(outs[0]["phases"])
+            rank_peaks[:] = [o["peak"] for o in outs]
+            return outs
+
+        def sync():
+            if cuda:
+                torch.cuda.synchronize()
+
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         with open(os.path.join(cache, art.R1CS_CONSTRAINTS_FILE), "wb") as f:
             f.write(circuit.dump)
-        srs.verifier_runs_setup(td, cache, N_PUBLIC, True, True, device=device)
-        prover.prover_prepares_precomputes(cache, True, device=device)
+        setup(td, cache, device)
         rec["setup_phases"] = timing.summary()
-        rec["cold_verified"] = bool(srs.verify(td, pubs[0], prove(0)))
+        held = 0  # what this process still holds on card 0 while the ranks prove
+        if ranks:
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+                held = int(torch.cuda.memory_allocated())
+            ranks.join(cache, pubs, privs, prove_fn, trace)
+            log(f"{n_ranks} ranks joined: {ranks.ready}")
+        rec["cold_verified"] = bool(srs.verify(td, pubs[0], prove_one(0)[0]["proof"]))
         rec["cold_phases"] = phases.pop()
         sync()
         rec["cache_bytes"] = sum(os.path.getsize(os.path.join(d, f))
@@ -191,7 +249,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
         log(f"set-up {rec['setup_s']:.3f} s (m = {circuit.m}, cache {rec['cache_bytes']} bytes)")
 
         window = SimpleNamespace(
-            n=len(pool), log=log, prove=prove, sync=sync,
+            n=len(pool), log=log, prove=lambda j: prove_one(j)[0]["proof"], sync=sync,
             verify=lambda j, proof: bool(srs.verify(td, pubs[j], proof)))
         rec.update(cell["drive"].run(window, cell["traffic"], seconds))
         verdicts = rec["verdicts"]
@@ -202,15 +260,25 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
         if trace:
             rec["trace"] = {"prove_phases": list(phases), "setup_phases": rec["setup_phases"],
                             "cold_phases": rec["cold_phases"], "prove_s": rec["prove_s"],
-                            "msm_points": [len(pool[0]), circuit.m, 4 * circuit.m],
+                            "msm_points": [rank0_points(n, n_ranks) for n in
+                                           (len(pool[0]), circuit.m, 4 * circuit.m)],
                             "sm_clock_max_mhz": card.get("sm_clock_max_mhz")}
-            _, rec["trace"]["profile"] = profiled_prove(lambda: prove(0), cuda, timing)
-        rec["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated()) if cuda else 0
+            rec["profiles"] = [o["profile"] for o in prove_one(0, profile=True)]
+            rec["trace"]["profile"] = rec["profiles"][0]
+        own = int(torch.cuda.max_memory_allocated()) if cuda else 0
+        # card 0 holds this process and rank 0; card r > 0 holds rank r
+        rec["card_peaks"] = ([max(own, rank_peaks[0] + held)] + rank_peaks[1:] if ranks
+                             else [own])
+        rec["memory_peak_bytes"] = max(rec["card_peaks"])
     finally:
         timing.SYNC_PHASES = sync_was
+        if ranks:
+            ranks.close()
         shutil.rmtree(cache, ignore_errors=True)
+    if ranks and ranks.forbidden:
+        raise ForbiddenModules(f"a rank held {sorted(ranks.forbidden)} after the window")
 
-    # the check, once the window has closed and the peak is read
+    # the check, once the window has closed, the peak is read and the ranks are gone
     t_ref = time.perf_counter()
     domain = Domain(circuit.m)
     want = [expected_proof(domain, circuit, v, inp["trapdoor"]) for v in pool]
@@ -239,22 +307,44 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
             metrics[name] = {"value": float(v), "unit": entry["unit"]}
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-           "count": 1, "memory_peak_bytes": rec["memory_peak_bytes"]}
+           "count": n_ranks, "memory_peak_bytes": rec["memory_peak_bytes"],
+           "memory_peak_bytes_by_rank": rec["card_peaks"]}
     out = {"correct": correct, "attempted": rec["attempted"],
            "failed": rec["attempted"] - verdicts.count(True),
            "metrics": metrics, "device": dev}
     if trace:
+        profs = rec["profiles"]
+        dev["busy_s"] = sum(p["busy_s"] for p in profs) / len(profs)
+        dev["window_s"] = sum(p["window_s"] for p in profs) / len(profs)
+        dev["busy_s_by_rank"] = [p["busy_s"] for p in profs]
         prof = rec["trace"]["profile"]
-        dev["busy_s"], dev["window_s"] = prof["busy_s"], prof["window_s"]
         out["breakdown"] = {"device_ops": prof["top_ops"], "idle_gaps": prof["idle_gaps"]}
     out["card"] = card
     out["checks"] = checks
     return out
 
 
+def answer(call, profile: bool, cuda: bool, device=None) -> dict:
+    """One prove, call(), in this process: its proof, its phases, its
+    profile (profiled_prove's summary, None unless `profile`) and the
+    process's peak device bytes."""
+    import torch
+
+    from dvpari_tpu_torch.utils import timing
+
+    timing.reset()
+    if profile:
+        proof, prof = profiled_prove(call, cuda, timing)
+    else:
+        proof, prof = call(), None
+    return {"proof": proof, "phases": timing.summary(), "profile": prof,
+            "peak": int(torch.cuda.max_memory_allocated(device)) if cuda else 0}
+
+
 def profiled_prove(call, cuda: bool, timing):
     """One call under torch.profiler: (its result, attribution.summarize of
-    its device timeline with the traced window's wall time)."""
+    its device timeline with the traced window's wall time and the device
+    operations themselves, (name, start us, end us))."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -269,8 +359,11 @@ def profiled_prove(call, cuda: bool, timing):
             torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     names = set(timing.summary())
-    summary = attribution.summarize(attribution.from_profiler(prof, names), names)
+    events = attribution.from_profiler(prof, names)
+    summary = attribution.summarize(events, names)
     summary["window_s"] = wall
+    summary["device_events"] = [(name, t0, t1) for kind, name, t0, t1 in events
+                                if kind == "device"]
     return result, summary
 
 

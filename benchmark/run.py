@@ -46,8 +46,12 @@ def main(argv) -> int:
               f"{torch.cuda.is_available()}, device_count() {torch.cuda.device_count()}",
               file=sys.stderr)
         return 2
-    out = harness.run_cell(ROOT, args.workload, args.seed, args.seconds, bool(args.trace),
-                           device="cuda", t_start=T_START)
+    try:
+        out = harness.run_cell(ROOT, args.workload, args.seed, args.seconds, bool(args.trace),
+                               device="cuda", t_start=T_START)
+    except harness.ForbiddenModules as e:
+        print(f"run: {e}", file=sys.stderr)
+        return 3
     bad = harness.forbidden_modules()
     if bad:
         print(f"run: the process holds {bad} after the window", file=sys.stderr)

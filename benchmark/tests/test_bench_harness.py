@@ -190,6 +190,30 @@ def test_attribution_charges_device_time_to_phases_and_names_gaps():
                               ["prove.a", pytest.approx(30e-6)]]
 
 
+def test_from_profiler_leaves_out_the_profilers_nccl_ranges():
+    """The profiler's "nccl:<collective>" range on the device timeline
+    wraps NCCL's kernel, which alone is a device operation."""
+    import torch
+
+    def ev(key, dev, t0, t1):
+        return SimpleNamespace(key=key, device_type=dev,
+                               time_range=SimpleNamespace(start=t0, end=t1))
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    prof = SimpleNamespace(events=lambda: [
+        ev("prove.msm_gm", cpu, 0, 100), ev("prove.msm_gm", cuda, 5, 90),
+        ev("ladder_kernel", cuda, 10, 40), ev("nccl:all_gather", cuda, 50, 80),
+        ev("ncclDevKernel_AllGather_RING_LL", cuda, 50, 80), ev("aten::add", cpu, 1, 2)])
+    events = attribution.from_profiler(prof, {"prove.msm_gm"})
+    assert events == [("host_range", "prove.msm_gm", 0, 100),
+                      ("device_range", "prove.msm_gm", 5, 90),
+                      ("device", "ladder_kernel", 10, 40),
+                      ("device", "ncclDevKernel_AllGather_RING_LL", 50, 80)]
+    s = attribution.summarize(events, {"prove.msm_gm"})
+    assert s["device_ops"] == 2
+    assert s["busy_by_phase_s"]["prove.msm_gm"] == pytest.approx(60e-6)
+
+
 def _run(root, env=None):
     return subprocess.run([sys.executable, "benchmark/run.py", "--workload",
                            "sp1shape_m16.prove_loop", "--seed", str(2**33), "--seconds", "1",
